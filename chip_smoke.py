@@ -6,28 +6,41 @@
 Phases (the first failure ends the run with a non-zero exit code):
 
 1. device: a CUDA card is required; the TF32 pins are asserted;
-2. build: the fused E+M kernel is compiled from ``csrc/fused_em.cu``;
-3. kernel vs plain: the kernel against its plain PyTorch version at the
-   headline shape (F=513, T=2504, D=24, K=5), once with random Hermitian
-   PD precisions and once with identities (the EM's initial pass); both
-   are timed with CUDA events;
-4. slice: a synthetic 6-array x 4-mic PCM16 CHiME-5 session -> DB JSON ->
-   the port's CLI ``test_run`` (2 utterances, default ``GssConfig``, K = 5
-   with the garbage class) on the card; the fused kernel must carry every
-   E+M pass (20 per utterance); the WAVs must be finite, non-silent and
-   of the utterance's length; on a small two-speaker scene the card must
-   agree with the CPU path and separate the speakers, and the pipeline's
-   on-device output trim must equal the host slice; per-stage and
-   per-utterance times are printed.
+2. build: the three kernel libraries (``csrc/fused_em.cu``,
+   ``csrc/wpe_stats.cu``, ``csrc/gj_inverse.cu``) are compiled by
+   concurrent nvcc processes; each kernel's registers and spills are
+   printed;
+3. kernels vs plain, at the shapes of the headline utterance, each timed
+   with CUDA events in turns (plain, kernel, library call, and back)
+   beside its bound (the larger of its bytes over 3.35 TB/s and its
+   operations over the 67 TFLOP/s fp32 rate, H100 SXM data sheet):
+   K1 the fused E+M kernel (F=513, T=2504, D=24, K=5), K2 the WPE
+   statistics (F=513, dim=240, D=24, T=2504), K3 / K4 the Gauss-Jordan
+   inverse's two entries on the EM's (513, 5, 24, 24) batch;
+4. default path: a synthetic 6-array x 4-mic PCM16 CHiME-5 session -> DB
+   JSON -> the port's CLI ``test_run`` (2 utterances, default
+   ``GssConfig``, K = 5 with the garbage class) on the card; the fused
+   kernel must carry every E+M pass (20 per utterance); the WAVs must be
+   finite, non-silent and of the utterance's length; per-stage and
+   per-utterance times; on a small two-speaker scene the card must agree
+   with the CPU path and separate the speakers, and the pipeline's
+   on-device output trim must equal the host slice;
+5. all-Pallas path: the session ``Enhancer`` with ``GssConfig(
+   bss_em_backend='pallas', bss_inverse='pallas_gj', wpe_stats_backend=
+   'pallas')`` on the ~40 s utterance, warm: 20 K1, 20 K3 and 3 K2
+   launches, a finite non-silent WAV of the utterance's length, its stage
+   times beside the default path's; the small scene card vs CPU again.
 
-It imports the port (``pb_chime5_tpu_torch``) and the kernel test's
-input maker, never JAX or the JAX package ``pb_chime5_tpu``, and checks
-that nothing it ran imported either.
+Before each path's run every kernel's launch count is set to 0, and it is
+read right after.  It imports the port (``pb_chime5_tpu_torch``) and the
+kernel tests' input makers, never JAX or the JAX package
+``pb_chime5_tpu``, and checks that nothing it ran imported either.
 
-The last two lines of standard output are the kernels' JSON record and
-``{"ok": true, "device": {...}}``.
+The last three lines of standard output are the card's name and power
+limit, the kernels' JSON record and ``{"ok": true, "device": {...}}``.
 """
 
+import dataclasses
 import json
 import re
 import shutil
@@ -40,10 +53,20 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
 HEADLINE = (513, 2504, 24, 5)          # F, T, D, K
-S_RTOL = 1e-4        # relative Frobenius error of S per (f, k)
-DEN_RTOL = 1e-5      # relative error of den per (f, k)
+WPE_TAPS = 10
+S_RTOL = 1e-4        # K1: relative Frobenius error of S per (f, k)
+DEN_RTOL = 1e-5      # K1: relative error of den per (f, k)
+STATS_RTOL = 1e-5    # K2: relative Frobenius error of R and P per frequency
+INV_RTOL = 1e-5      # K3/K4 on HPD input: relative Frobenius of the inverse
+LOGDET_ATOL = 1e-4   # K3/K4 on HPD input: absolute logdet error
+EM_INV_RTOL = 1e-5   # K3/K4 on the EM-like batch, against the plain version
+EM_LOGDET_ATOL = 1e-3
 SCENE_ATOL = 1e-2    # card vs CPU waveform, fraction of the peak
 EM_PASSES = 20       # fused E+M passes per utterance at 20 + 1 iterations
+WPE_ITERATIONS = 3
+HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
+FP32_FLOP_PER_S = 67e12       # H100 SXM data sheet, CUDA cores
+LIBRARIES = ('fused_em', 'wpe_stats', 'gj_inverse')
 
 
 def imported_jax():
@@ -57,23 +80,73 @@ def check(ok, message):
 
 
 def cuda_ms(torch, fn, reps):
-    """Median wall time of ``fn`` on the card, in ms (CUDA events)."""
+    """ms per call of ``fn`` on the card: median over 5 windows of
+    ``reps`` back-to-back calls, each window between two CUDA events."""
     fn()
     torch.cuda.synchronize()
     times = []
-    for _ in range(reps):
+    for _ in range(5):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(reps):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / reps)
     return statistics.median(times)
 
 
-def kernel_vs_plain(torch, fused_em):
-    """Phase 3: correctness at the headline shape, then both times."""
+def graph_ms(torch, fn, reps):
+    """Device ms per call of ``fn``, replayed from a CUDA graph of ``reps``
+    calls: no host launch overhead."""
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn()                                   # warm-up outside the capture
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    return cuda_ms(torch, graph.replay, 1) / reps
+
+
+def in_turns(torch, fns, rounds=2):
+    """{name: (fn, reps)} -> {name: ms}, timed in turns: the names in
+    order and back again (plain, kernel, library, library, kernel, plain),
+    ``rounds`` times; the median of each name's windows."""
+    times = {name: [] for name in fns}
+    for _ in range(rounds):
+        for name in list(fns) + list(fns)[::-1]:
+            fn, reps = fns[name]
+            times[name].append(cuda_ms(torch, fn, reps))
+    return {name: statistics.median(v) for name, v in times.items()}
+
+
+def bound(nbytes, flops):
+    """(bound_ms, bound_by): the least time for ``nbytes`` moved once and
+    ``flops`` fp32 operations on the H100."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOP_PER_S * 1e3
+    return (t_bytes, 'bytes') if t_bytes >= t_ops else (t_ops, 'operations')
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def print_times(name, t, bound_ms, bound_by):
+    lib = ('none' if t.get('library') is None
+           else f'{t["library"]:.4f} ms')
+    print(f'{name} time: kernel {t["kernel"]:.4f} ms, plain '
+          f'{t["plain"]:.4f} ms, library {lib}, bound {bound_ms:.4f} ms '
+          f'({bound_by})', flush=True)
+
+
+def k1_vs_plain(torch, fused_em):
+    """K1: correctness at the headline shape (random HPD precisions and
+    the EM's identity first pass), then the times."""
     from tests.test_torch_fused_em_cuda import random_inputs, scatter_errors
     worst_abs = 0.0
     timed = None
@@ -98,16 +171,144 @@ def kernel_vs_plain(torch, fused_em):
         if not identity:
             timed = inputs
         del S, den, S_ref, den_ref
-    plain, kern = [], []
-    for _ in range(3):            # in turns: plain, kernel, kernel, plain
-        plain.append(cuda_ms(
-            torch, lambda: fused_em.fused_em_scatter_reference(*timed), 3))
-        kern.append(cuda_ms(
-            torch, lambda: fused_em.fused_em_scatter(*timed), 10))
-    ms, plain_ms = statistics.median(kern), statistics.median(plain)
-    print(f'fused_em time at F,T,D,K={HEADLINE}: kernel {ms:.4f} ms, '
-          f'plain {plain_ms:.4f} ms', flush=True)
-    return worst_abs, ms, plain_ms
+    t = in_turns(torch, {
+        'plain': (lambda: fused_em.fused_em_scatter_reference(*timed), 2),
+        'kernel': (lambda: fused_em.fused_em_scatter(*timed), 10)})
+    z, (lw, prec, ld), act, fm = timed
+    F, T, D, K = HEADLINE
+    # what the function needs, using the Hermitian structure: per valid
+    # frame the lower triangle of z z^H (3 D^2); per valid frame and
+    # active class (act > 0; an inactive class gets gamma = 0) the E-step
+    # form Re tr(P_k z z^H) over the lower triangle (2 D^2) and the
+    # update of S_k's lower triangle by (gamma / q) z z^H (2 D^2)
+    valid = fm > 0
+    pairs = int(((act > 0) & valid).sum())
+    flops = F * (int(valid.sum()) * 3 * D * D + pairs * 4 * D * D)
+    # z and the small inputs once, P's lower triangle, S and den written
+    prec_bytes = F * K * D * (D + 1) // 2 * 8
+    out_bytes = F * K * D * D * 8 + F * K * 4
+    bound_ms, bound_by = bound(
+        nbytes(z, lw, ld, act, fm) + prec_bytes + out_bytes, flops)
+    print_times(f'fused_em at F,T,D,K={HEADLINE}', t, bound_ms, bound_by)
+    return dict(max_abs_err=worst_abs, ms=t['kernel'], plain_ms=t['plain'],
+                library_ms=None, bound_ms=bound_ms, bound_by=bound_by)
+
+
+def k2_vs_plain(torch, wpe_stats):
+    """K2 at the headline: WPE's first-iteration statistics of a seeded
+    signal with a near-silent stretch and a masked tail."""
+    from tests.test_torch_kernels_cuda import stats_errors, wpe_inputs
+    F, T, D, _ = HEADLINE
+    Yt, Y, w, valid = wpe_inputs(F, D, T, taps=WPE_TAPS, seed=11,
+                                 device='cuda')
+    before = wpe_stats.wpe_statistics.launches
+    R, P = wpe_stats.wpe_statistics(Yt, Y, w)
+    torch.cuda.synchronize()
+    check(wpe_stats.wpe_statistics.launches == before + 1,
+          'the statistics wrapper did not count its launch')
+    R_ref, P_ref = wpe_stats.wpe_statistics_reference(Yt, Y, w)
+    rel_R, rel_P, max_abs = stats_errors(R, P, R_ref, P_ref)
+    print(f'wpe_statistics: rel_R {rel_R:.3e}, rel_P {rel_P:.3e} '
+          f'(<= {STATS_RTOL}), max_abs {max_abs:.3e}', flush=True)
+    check(bool(torch.isfinite(R).all() and torch.isfinite(P).all()),
+          'statistics kernel output is not finite')
+    check(rel_R <= STATS_RTOL and rel_P <= STATS_RTOL,
+          'statistics kernel disagrees with its plain version')
+    del R, P, R_ref, P_ref
+    # the library call: the complex matmul pair on the weighted copy,
+    # which is made once outside the timing
+    weighted = Yt * w[:, None, :].to(Yt.dtype)
+    t = in_turns(torch, {
+        'plain': (lambda: wpe_stats.wpe_statistics_reference(Yt, Y, w), 2),
+        'kernel': (lambda: wpe_stats.wpe_statistics(Yt, Y, w), 3),
+        'library': (lambda: (weighted @ Yt.conj().transpose(-2, -1),
+                             weighted @ Y.conj().transpose(-2, -1)), 3)})
+    dim = Yt.shape[1]
+    # the lower triangle of R and P over the valid frames
+    flops = 8.0 * F * valid * (dim * (dim + 1) // 2 + dim * D)
+    out_bytes = F * dim * (dim + D) * 8
+    bound_ms, bound_by = bound(nbytes(Yt, Y, w) + out_bytes, flops)
+    print_times(f'wpe_statistics at F,dim,D,T=({F}, {dim}, {D}, {T})', t,
+                bound_ms, bound_by)
+    return dict(max_abs_err=max_abs, ms=t['kernel'], plain_ms=t['plain'],
+                library_ms=t['library'], bound_ms=bound_ms,
+                bound_by=bound_by)
+
+
+def gj_vs_plain(torch, gj_inverse):
+    """K3 and K4 on the EM's batch: (a) well-conditioned HPD matrices,
+    against the plain version; (b) EM-like rank-deficient covariances
+    with the 1e-6 jitter, against the plain version, and a residual
+    against float64 no worse than the plain version's (see
+    tests/test_torch_kernels_cuda.py); then the times."""
+    from tests.test_torch_kernels_cuda import (
+        GJ_ENTRIES, against_float64, em_like_batch, inverse_errors,
+        random_hpd)
+    F, _, D, K = HEADLINE
+    hpd = random_hpd((F, K), D, seed=12, device='cuda')
+    em = em_like_batch(F, K, D, seed=13, device='cuda')
+    out = {}
+    for name, (kernel, reference) in GJ_ENTRIES.items():
+        before = kernel.launches
+        inv, ld = kernel(hpd)
+        torch.cuda.synchronize()
+        check(kernel.launches == before + 1,
+              f'{kernel.__name__} did not count its launch')
+        rel, dld, max_abs = inverse_errors(inv, ld, *reference(hpd))
+        print(f'{kernel.__name__} (a) HPD: rel_inv {rel:.3e} '
+              f'(<= {INV_RTOL}), logdet {dld:.3e} (<= {LOGDET_ATOL}), '
+              f'max_abs {max_abs:.3e}', flush=True)
+        check(bool(torch.isfinite(inv).all() and torch.isfinite(ld).all()),
+              f'{kernel.__name__} output is not finite')
+        check(rel <= INV_RTOL and dld <= LOGDET_ATOL,
+              f'{kernel.__name__} disagrees with its plain version')
+        inv, ld = kernel(em)
+        inv_ref, ld_ref = reference(em)
+        rel, dld, em_abs = inverse_errors(inv, ld, inv_ref, ld_ref)
+        res, dld64 = against_float64(em, inv, ld)
+        res_ref, dld64_ref = against_float64(em, inv_ref, ld_ref)
+        print(f'{kernel.__name__} (b) EM-like vs plain: rel_inv {rel:.3e} '
+              f'(<= {EM_INV_RTOL}), logdet {dld:.3e} (<= {EM_LOGDET_ATOL}); '
+              f'vs float64: residual {res:.3e} (plain {res_ref:.3e}), '
+              f'logdet {dld64:.3e} (plain {dld64_ref:.3e})', flush=True)
+        check(bool(torch.isfinite(inv).all() and torch.isfinite(ld).all()),
+              f'{kernel.__name__} output is not finite on the EM batch')
+        check(rel <= EM_INV_RTOL and dld <= EM_LOGDET_ATOL,
+              f'{kernel.__name__} disagrees with its plain version on the '
+              f'EM batch')
+        check(res <= 2 * res_ref + 1e-6,
+              f'{kernel.__name__} has a larger residual than its plain '
+              f'version on the EM batch')
+        max_abs = max(max_abs, em_abs)
+        # the library call computes the inverse only
+        t = in_turns(torch, {
+            'plain': (lambda: reference(hpd), 5),
+            'kernel': (lambda: kernel(hpd), 200),
+            'library': (lambda: torch.linalg.inv_ex(hpd), 20)})
+        # the input's lower triangle read, the inverse and logdet written;
+        # a Hermitian inverse needs ~4 D^3 flops (Cholesky-based: D^3 / 2
+        # complex multiply-adds; Gauss-Jordan issues 8 D^3)
+        N = F * K
+        bound_ms, bound_by = bound(
+            N * D * (D + 1) // 2 * 8 + nbytes(hpd) + N * 4, 4.0 * N * D ** 3)
+        print_times(f'{kernel.__name__} at ({F}, {K}, {D}, {D})', t,
+                    bound_ms, bound_by)
+        # the eager times above include the host's launches (the plain
+        # version issues ~15 a pivot step); the device's share alone:
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        for _ in range(200):
+            kernel(hpd)
+        host_us = (time.perf_counter() - start) / 200 * 1e6
+        torch.cuda.synchronize()
+        print(f'{kernel.__name__} device time from a CUDA graph: kernel '
+              f'{graph_ms(torch, lambda: kernel(hpd), 200):.4f} ms, plain '
+              f'{graph_ms(torch, lambda: reference(hpd), 5):.4f} ms; host '
+              f'time per kernel call {host_us:.1f} us', flush=True)
+        out[kernel.__name__] = dict(
+            max_abs_err=max_abs, ms=t['kernel'], plain_ms=t['plain'],
+            library_ms=t['library'], bound_ms=bound_ms, bound_by=bound_by)
+    return out
 
 
 def make_corpus(root):
@@ -147,15 +348,14 @@ def small_scene(seconds=3.0, D=4, seed=0):
     return obs.astype(np.float32), activity, (b0, b1)
 
 
-def card_vs_cpu(torch):
+def card_vs_cpu(torch, cfg, label):
     """The whole chain on a small scene, on the card and on the CPU path
-    (plain E+M version): waveforms within SCENE_ATOL of the peak, and the
-    target-only vs interferer-only energy ratio raised by > 30x (the
-    bound tests/test_gss_pipeline.py holds the JAX chain to)."""
+    (the kernels' plain versions): waveforms within SCENE_ATOL of the
+    peak, and the target-only vs interferer-only energy ratio raised by
+    > 30x (the bound tests/test_gss_pipeline.py holds the JAX chain to)."""
     import numpy as np
-    from pb_chime5_tpu_torch.models.gss import GssConfig, gss_enhance
+    from pb_chime5_tpu_torch.models.gss import gss_enhance
     from pb_chime5_tpu_torch.utils import activity_time_to_frequency
-    cfg = GssConfig(bss_iterations=10)
     obs, activity, (b0, b1) = small_scene()
     act = activity_time_to_frequency(activity, cfg.stft_size, cfg.stft_shift,
                                      stft_fading=True, stft_pad=True)
@@ -173,14 +373,18 @@ def card_vs_cpu(torch):
 
     gain = (energy(x, 0, b1) / max(energy(x, b0, x.shape[-1]), 1e-12)) / (
         energy(obs[0], 0, b1) / energy(obs[0], b0, obs.shape[-1]))
-    print(f'small scene: card vs CPU {err:.3e} of the peak '
+    print(f'small scene, {label}: card vs CPU {err:.3e} of the peak '
           f'(<= {SCENE_ATOL}); SIR gain {gain:.1f}x (> 30)', flush=True)
     check(np.isfinite(x).all() and err <= SCENE_ATOL,
-          'card and CPU paths disagree on the small scene')
-    check(gain > 30, 'the chain does not separate the small scene')
+          f'card and CPU paths disagree on the small scene ({label})')
+    check(gain > 30, f'the chain does not separate the small scene ({label})')
+    return obs, act
 
-    # asynchronous pipeline on the card: bucket padding, int16 upload,
-    # the trim sliced on the device equals the host slice bit for bit
+
+def pipeline_trim(torch, cfg, obs, act):
+    """Asynchronous pipeline on the card: bucket padding, int16 upload,
+    the trim sliced on the device equals the host slice bit for bit."""
+    import numpy as np
     from pb_chime5_tpu_torch.models.gss import GssPipeline
     pcm = np.clip(obs / np.abs(obs).max() * 2 ** 14, -2 ** 15,
                   2 ** 15 - 1).astype(np.int16)
@@ -198,13 +402,39 @@ def card_vs_cpu(torch):
           'the device trim differs from the host slice')
 
 
-def slice_run(torch, fused_em, work):
-    """Phase 4: the port's CLI on the synthetic session; returns the main
-    path's kernel launch count."""
+def check_wav(ex, x):
     import numpy as np
+    expected = ex['num_samples_orig']['observation'][ex['reference_array']]
+    print(f'{ex["example_id"]}: {len(x)} samples, peak '
+          f'{np.abs(x).max():.3f}', flush=True)
+    check(len(x) == expected,
+          f'{ex["example_id"]}: {len(x)} samples, expected {expected}')
+    check(np.isfinite(x).all() and np.abs(x).max() > 0,
+          f'{ex["example_id"]} is not finite and non-silent')
+
+
+def observation_seconds(ex):
+    ra = ex['reference_array']
+    return (ex['end']['observation'][ra]
+            - ex['start']['observation'][ra]) / 16000
+
+
+def stage_times(gss, enhancer, ex):
+    with gss.record_stage_times() as times:
+        enhancer.enhance_example(ex)
+    (ms,) = times
+    return {**{f'{k}_ms': round(v, 3) for k, v in ms.items()},
+            'total_ms': round(sum(ms.values()), 3)}
+
+
+def default_path(torch, counts, work):
+    """Phase 4: the port's CLI on the synthetic session at the default
+    config; returns the kernel launch counts of that run, the enhancer
+    and its examples."""
     from pb_chime5_tpu_torch.io import load_audio
     from pb_chime5_tpu_torch.models import gss
     from pb_chime5_tpu_torch.models.enhancer import get_enhancer
+    from pb_chime5_tpu_torch.models.gss import GssConfig
     from pb_chime5_tpu_torch.scripts.run import make_experiment
 
     start = time.perf_counter()
@@ -215,67 +445,137 @@ def slice_run(torch, fused_em, work):
     argv = ['test_run', 'with', 'multiarray', 'session_id=S02',
             f'database_path={db}', 'device=cuda']
 
-    fused_em.fused_em_scatter.launches = 0
+    counts.reset()
     start = time.perf_counter()
     exp.run_commandline(argv)
     cli_s = time.perf_counter() - start
-    launches = fused_em.fused_em_scatter.launches
+    launches = counts.read()
+    print(f'default path launches: {launches}', flush=True)
 
     wavs = sorted((exp.run_dir / 'audio' / 'dev').glob('*.wav'))
     check(len(wavs) == 2, f'expected 2 WAVs, got {wavs}')
-    check(launches == EM_PASSES * len(wavs),
-          f'{launches} fused E+M launches, expected {EM_PASSES} per '
-          f'utterance')
+    expected = dict.fromkeys(launches, 0)
+    expected['fused_em_scatter'] = EM_PASSES * len(wavs)
+    check(launches == expected,
+          f'default path launches {launches}, expected {expected} '
+          f'({EM_PASSES} fused E+M passes per utterance)')
     check(not imported_jax(), 'the port imported jax or the JAX package')
 
     enhancer = get_enhancer(multiarray=True, database_path=str(db),
                             device='cuda')
     it = enhancer.get_iterator('S02')
+    examples = [it[wav.stem] for wav in wavs]
     emitted = 0.0
-    for wav in wavs:
-        ex = it[wav.stem]
+    for ex, wav in zip(examples, wavs):
         x = load_audio(wav)
         emitted += len(x) / 16000
-        expected = ex['num_samples_orig']['observation'][
-            ex['reference_array']]
-        print(f'{wav.name}: {len(x)} samples, peak {np.abs(x).max():.3f}',
-              flush=True)
-        check(len(x) == expected, f'{wav.name}: {len(x)} samples, '
-              f'expected {expected}')
-        check(np.isfinite(x).all() and np.abs(x).max() > 0,
-              f'{wav.name} is not finite and non-silent')
+        check_wav(ex, x)
     print(f'CLI test_run (cold, incl. DB load and WAV writes): '
           f'{cli_s:.3f} s for {emitted:.3f} s emitted, '
           f'xRT {emitted / cli_s:.3f}', flush=True)
 
-    for wav in wavs:                      # warm, one utterance at a time
-        ex = it[wav.stem]
+    for ex in examples:                   # warm, one utterance at a time
         torch.cuda.synchronize()
         start = time.perf_counter()
         x = enhancer.enhance_example(ex)
         wall = time.perf_counter() - start
-        ra = ex['reference_array']
-        obs_s = (ex['end']['observation'][ra]
-                 - ex['start']['observation'][ra]) / 16000
+        obs_s = observation_seconds(ex)
         print(f'utterance {ex["example_id"]}: wall {wall:.4f} s, '
               f'observation {obs_s:.3f} s, emitted {len(x) / 16000:.3f} s, '
               f'xRT emitted {len(x) / 16000 / wall:.3f}, '
               f'xRT observation {obs_s / wall:.3f}', flush=True)
-    for wav in wavs:                      # the same calls, stage by stage
-        ex = it[wav.stem]
-        with gss.record_stage_times() as times:
-            enhancer.enhance_example(ex)
-        (ms,) = times
-        print('stages', json.dumps({
-            'utterance': wav.stem,
-            **{f'{k}_ms': round(v, 3) for k, v in ms.items()},
-            'total_ms': round(sum(ms.values()), 3)}), flush=True)
+    for ex in examples:                   # the same calls, stage by stage
+        print('stages', json.dumps({'utterance': ex['example_id'],
+                                    **stage_times(gss, enhancer, ex)}),
+              flush=True)
     print(f'peak device memory: '
           f'{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB',
           flush=True)
-    card_vs_cpu(torch)
+    cfg = GssConfig(bss_iterations=10)
+    pipeline_trim(torch, cfg, *card_vs_cpu(torch, cfg, 'default'))
+    check(not imported_jax(), 'the run imported jax or the JAX package')
+    return launches, enhancer, examples
+
+
+def all_pallas_path(torch, counts, enhancer, examples):
+    """Phase 5: the all-Pallas configuration through the session
+    ``Enhancer`` on the longest utterance, warm; returns its launch
+    counts."""
+    from pb_chime5_tpu_torch.models import gss
+    from pb_chime5_tpu_torch.models.gss import GssConfig
+    all_pallas = dict(bss_em_backend='pallas', bss_inverse='pallas_gj',
+                      wpe_stats_backend='pallas')
+    pallas_enhancer = dataclasses.replace(
+        enhancer, gss_config=GssConfig(**all_pallas))
+    ex = max(examples, key=observation_seconds)
+    pallas_enhancer.enhance_example(ex)   # warm-up
+    torch.cuda.synchronize()
+
+    counts.reset()
+    start = time.perf_counter()
+    x = pallas_enhancer.enhance_example(ex)
+    wall = time.perf_counter() - start
+    launches = counts.read()
+    print(f'all-Pallas path launches: {launches}', flush=True)
+    expected = {'fused_em_scatter': EM_PASSES,
+                'hermitian_inverse_and_logdet_2d': EM_PASSES,
+                'wpe_statistics': WPE_ITERATIONS,
+                'hermitian_inverse_and_logdet': 0}
+    check(launches == expected,
+          f'all-Pallas launches {launches}, expected {expected}')
+    check_wav(ex, x)
+    obs_s = observation_seconds(ex)
+    print(f'all-Pallas utterance {ex["example_id"]}: wall {wall:.4f} s, '
+          f'observation {obs_s:.3f} s, emitted {len(x) / 16000:.3f} s, '
+          f'xRT emitted {len(x) / 16000 / wall:.3f}, '
+          f'xRT observation {obs_s / wall:.3f}', flush=True)
+    for label, e in (('default', enhancer), ('all_pallas', pallas_enhancer),
+                     ('default', enhancer), ('all_pallas', pallas_enhancer)):
+        print('stages', json.dumps({'utterance': ex['example_id'],
+                                    'config': label,
+                                    **stage_times(gss, e, ex)}), flush=True)
+    card_vs_cpu(torch, GssConfig(bss_iterations=10, **all_pallas),
+                'all-Pallas')
     check(not imported_jax(), 'the run imported jax or the JAX package')
     return launches
+
+
+class LaunchCounts:
+    """The launch counters of every kernel entry of the port."""
+
+    def __init__(self, fused_em, wpe_stats, gj_inverse):
+        self.entries = (fused_em.fused_em_scatter,
+                        wpe_stats.wpe_statistics,
+                        gj_inverse.hermitian_inverse_and_logdet_2d,
+                        gj_inverse.hermitian_inverse_and_logdet)
+
+    def reset(self):
+        for entry in self.entries:
+            entry.launches = 0
+
+    def read(self):
+        return {entry.__name__: entry.launches for entry in self.entries}
+
+
+def build(_build):
+    """Phase 2: one nvcc per source, all started together."""
+    start = time.perf_counter()
+    _build.load_libraries(LIBRARIES)
+    print(f'build + load of {", ".join(LIBRARIES)}: '
+          f'{time.perf_counter() - start:.3f} s', flush=True)
+    for name in LIBRARIES:
+        kernel = None          # ptxas resources per kernel instantiation
+        for line in _build.build_log(name).splitlines():
+            if 'Compiling entry' in line:
+                m = re.search(r'\d([a-z][a-z_]*_kernel)(?:IL([bi])(\d+)E)?',
+                              line)
+                kernel = m[1] if m else line
+                if m and m[2]:
+                    kernel += (f'<{"true" if m[3] == "1" else "false"}>'
+                               if m[2] == 'b' else f'<{m[3]}>')
+            elif kernel and ('registers' in line or 'spill' in line):
+                print(f'{name}: {kernel}: {line.split(":", 1)[-1].strip()}',
+                      flush=True)
 
 
 def main():
@@ -284,7 +584,8 @@ def main():
         sys.exit('chip_smoke: torch.cuda.is_available() is False; this '
                  'smoke run needs one CUDA card')
     from pb_chime5_tpu_torch import _device
-    from pb_chime5_tpu_torch.ops.kernels import _build, fused_em
+    from pb_chime5_tpu_torch.ops.kernels import (
+        _build, fused_em, gj_inverse, wpe_stats)
 
     print('== 1 device', flush=True)
     card = subprocess.run(
@@ -297,39 +598,49 @@ def main():
     _device.assert_precision()
 
     print('== 2 build', flush=True)
-    start = time.perf_counter()
-    _build.load_library('fused_em')
-    print(f'fused_em build + load: {time.perf_counter() - start:.3f} s',
-          flush=True)
-    kernel = None          # ptxas resources per kernel instantiation
-    for line in _build.build_log('fused_em').splitlines():
-        m = re.search(r'fused_em_kernelILi(\d+)E', line)
-        if m and 'Compiling entry' in line:
-            kernel = f'fused_em_kernel<{m[1]}>'
-        elif kernel and ('registers' in line or 'spill' in line):
-            print(f'{kernel}: {line.split(":", 1)[-1].strip()}', flush=True)
+    build(_build)
 
-    print('== 3 kernel vs plain', flush=True)
-    max_abs, ms, plain_ms = kernel_vs_plain(torch, fused_em)
+    print('== 3 kernels vs plain', flush=True)
+    results = {'fused_em_scatter': k1_vs_plain(torch, fused_em),
+               'wpe_statistics': k2_vs_plain(torch, wpe_stats),
+               **gj_vs_plain(torch, gj_inverse)}
+    torch.cuda.empty_cache()
 
-    print('== 4 slice', flush=True)
+    counts = LaunchCounts(fused_em, wpe_stats, gj_inverse)
     (REPO / 'build').mkdir(exist_ok=True)
     work = Path(tempfile.mkdtemp(prefix='chip_smoke_', dir=REPO / 'build'))
     try:
-        launches = slice_run(torch, fused_em, work)
+        print('== 4 default path', flush=True)
+        default_launches, enhancer, examples = default_path(
+            torch, counts, work)
+        print('== 5 all-Pallas path', flush=True)
+        pallas_launches = all_pallas_path(torch, counts, enhancer, examples)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
-    print(json.dumps({'kernels': [{
-        'name': 'fused_em_scatter',
-        'route': 'cuda',
-        'source': 'pb_chime5_tpu_torch/csrc/fused_em.cu',
-        'replaces': 'pb_chime5_tpu/ops/pallas/fused_em.py:59',
-        'launches': launches,
-        'max_abs_err': max_abs,
-        'ms': ms,
-        'plain_ms': plain_ms,
-    }]}), flush=True)
+    sources = {
+        'fused_em_scatter': ('fused_em.cu', 'fused_em.py:59',
+                             default_launches),
+        'wpe_statistics': ('wpe_stats.cu', 'wpe_stats.py:54',
+                           pallas_launches),
+        'hermitian_inverse_and_logdet_2d': ('gj_inverse.cu',
+                                            'gj_inverse2d.py:67',
+                                            pallas_launches),
+        # entry point only: no GssConfig reaches it
+        'hermitian_inverse_and_logdet': ('gj_inverse.cu',
+                                         'hermitian_inverse.py:34',
+                                         pallas_launches),
+    }
+    kernels = []
+    for name, (source, replaces, launches) in sources.items():
+        kernels.append({
+            'name': name, 'route': 'cuda',
+            'source': f'pb_chime5_tpu_torch/csrc/{source}',
+            'replaces': f'pb_chime5_tpu/ops/pallas/{replaces}',
+            'launches': launches[name], **results[name],
+            'on_main_path': name != 'hermitian_inverse_and_logdet'})
+    print(card, flush=True)
+    print(json.dumps({'kernels': kernels}), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}), flush=True)

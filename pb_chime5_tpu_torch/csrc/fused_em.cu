@@ -14,10 +14,15 @@
 // applies them), exactly as the TPU kernel does.
 //
 // What bounds it on this card: at the headline shape (T = 2504, D = 24,
-// K = 5) each frequency costs ~115 MFLOP per launch (the E-step's K
-// matrix-vector products and the M-step's K rank-1 updates, ~23 KFLOP a
-// frame each) against 0.5 MB of z read once: arithmetic, not memory.
-// Within that, the E-step's P z products take the larger share: chains
+// K = 5) this kernel issues ~115 MFLOP per frequency and launch (for
+// every frame and class a full D x D product P_k z_t and a full rank-1
+// update, ~9.4 KFLOP each) against 0.5 MB of z read once: arithmetic, not
+// memory.  The function needs less: the lower triangle of z_t z_t^H once
+// per valid frame (3 D^2 flops), then for each active class the Hermitian
+// form Re tr(P_k z_t z_t^H) and the update of S_k's lower triangle
+// (4 D^2 flops), ~18 MFLOP per frequency at chip_smoke.py's activity;
+// that is the bound it reports.  Of the kernel's own work, the E-step's
+// P z products take the larger share: chains
 // of dependent FMAs fed by shared-memory loads of P, latency-bound when
 // few warps share an SM (with one block per SM the E-step measured ~65%
 // of a launch on an H100).
@@ -248,10 +253,6 @@ cudaError_t launch(const void* z, const void* prec, const void* lw,
 }  // namespace
 
 extern "C" {
-
-const char* pb_cuda_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
-}
 
 // Launch on `stream`; returns the cudaError_t of the launch (0 = success).
 int pb_fused_em_scatter(const void* z, const void* prec, const void* lw,

@@ -65,8 +65,12 @@ class GssConfig:
     """Pipeline configuration: the JAX ``GssConfig`` fields and defaults.
 
     TPU-only implementation choices keep their names and accept their
-    defaults; every other value, and every option of the chain that is
-    not ported yet, raises ``NotImplementedError`` at construction.
+    defaults and the ported kernels: the all-Pallas configuration
+    ``GssConfig(bss_em_backend='pallas', bss_inverse='pallas_gj',
+    wpe_stats_backend='pallas')`` runs the statistics and Gauss-Jordan
+    kernels beside the fused E+M kernel.  Every other value, and every
+    option of the chain that is not ported yet, raises
+    ``NotImplementedError`` at construction.
     """
     stft_size: int = 1024
     stft_shift: int = 256
@@ -87,6 +91,7 @@ class GssConfig:
     bss_iterations_post: int = 1
     # the fused E+M kernel ('pallas' is the JAX name of the same choice)
     bss_em_backend: str = 'auto'
+    # 'gauss_jordan' / 'auto' (plain GJ) | 'pallas_gj' (the GJ kernel)
     bss_inverse: str = 'gauss_jordan'
 
     bf: str = 'mvdrSouden_ban'
@@ -98,7 +103,8 @@ class GssConfig:
             'wpe_psd_context': self.wpe_psd_context == 0,
             'wpe_chunk_size': self.wpe_chunk_size is None,
             'wpe_precision': self.wpe_precision == 'highest',
-            'wpe_stats_backend': self.wpe_stats_backend == 'auto',
+            'wpe_stats_backend': self.wpe_stats_backend in (
+                'auto', 'xla', 'pallas'),
             'wpe_solve_refine': self.wpe_solve_refine == 0,
             'bf': self.bf in ('mvdrSouden_ban', 'mvdr_souden'),
             'postfilter': self.postfilter in (None, 'mask_mul'),
@@ -154,7 +160,8 @@ def _wpe_stage(Obs_fdt, config: GssConfig, frame_mask):
     return wpe(Obs_fdt, taps=config.wpe_taps, delay=config.wpe_delay,
                iterations=config.wpe_iterations,
                regularization=config.wpe_regularization,
-               frame_mask=frame_mask)
+               frame_mask=frame_mask,
+               stats_backend=config.wpe_stats_backend)
 
 
 def _em_stage(Obs_fdt, activity_freq, config: GssConfig, frame_mask):

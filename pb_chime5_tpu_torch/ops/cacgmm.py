@@ -5,8 +5,13 @@ The port's only EM driver is the counterpart of the JAX fused-kernel
 driver ``_cacgmm_posteriors_pallas``: all frequencies advance together,
 every E+M accumulation is one launch of the fused kernel
 (:func:`~pb_chime5_tpu_torch.ops.kernels.fused_em.fused_em_scatter`), and
-the per-iteration covariance finalize + inverse is plain PyTorch batched
-over (F, K).  Iteration structure (reference pb_chime5/core.py:180-202
+the per-iteration covariance finalize is plain PyTorch batched over
+(F, K).  Its inverse is the plain Gauss-Jordan with a relative pivot
+floor (``inverse='auto'`` / ``'gauss_jordan'``) or, with
+``inverse='pallas_gj'``, one launch of the batched Gauss-Jordan kernel
+(``ops/kernels/gj_inverse.py::hermitian_inverse_and_logdet_2d``, pivot
+floored at ``FLT_MIN``): the two floors differ, as they do in the JAX
+package.  Iteration structure (reference pb_chime5/core.py:180-202
 with the pb_bss fit loop): one initialization-driven M-step, then
 ``iterations - 1`` masked (E, M) passes, then ``iterations_post - 1``
 unmasked ones, then a final E-step — masked when ``iterations_post ==
@@ -25,9 +30,11 @@ import torch
 from pb_chime5_tpu_torch.ops.linalg import (
     hermitize, gauss_jordan_inverse_and_logdet)
 from pb_chime5_tpu_torch.ops.kernels.fused_em import fused_em_scatter
+from pb_chime5_tpu_torch.ops.kernels.gj_inverse import (
+    hermitian_inverse_and_logdet_2d)
 
 __all__ = ['CacgmmConfig', 'cacgmm_posteriors', 'make_initialization',
-           'params_from_numpy']
+           'params_from_numpy', 'add_jitter']
 
 _INIT_FLOOR = 1e-10
 
@@ -38,17 +45,18 @@ class CacgmmConfig:
     fused-kernel EM uses."""
     iterations: int = 20
     iterations_post: int = 1
-    # 'auto' == 'gauss_jordan': trace-scaled jitter + unpivoted GJ
+    # 'auto' == 'gauss_jordan': trace-scaled jitter + unpivoted GJ;
+    # 'pallas_gj': the same jitter + the batched GJ kernel
     inverse: str = 'auto'
     diagonal_floor: float = 1e-6
     # the fused E+M kernel ('auto' and 'pallas' both name it here)
     em_backend: str = 'auto'
 
     def __post_init__(self):
-        if self.inverse not in ('auto', 'gauss_jordan'):
+        if self.inverse not in ('auto', 'gauss_jordan', 'pallas_gj'):
             raise NotImplementedError(
                 f'inverse={self.inverse!r} is not ported yet (ROADMAP.md, '
-                f'Queue 1); use "gauss_jordan"')
+                f'Queue 1); use "gauss_jordan" or "pallas_gj"')
         if self.em_backend not in ('auto', 'pallas'):
             raise NotImplementedError(
                 f'em_backend={self.em_backend!r}: only the fused E+M kernel '
@@ -84,15 +92,24 @@ def _trace_normalize(cov):
         cov / torch.where(is_zero, torch.ones_like(tr), tr).to(cov.dtype))
 
 
-def _invert(cov, config: CacgmmConfig):
-    """Hermitian (..., D, D) -> (precision, logdet): trace-scaled
-    diagonal jitter, then the unpivoted Gauss-Jordan inverse."""
+def add_jitter(cov, diagonal_floor):
+    """``cov + max(diagonal_floor * trace / D, tiny) I``: the EM's
+    conditioning floor before its inverse."""
     D = cov.shape[-1]
     tiny = torch.finfo(cov.real.dtype).tiny
     tr = torch.diagonal(cov, dim1=-2, dim2=-1).sum(-1).real
-    jitter = torch.clamp_min(config.diagonal_floor * tr / D, tiny)
-    cov = cov + jitter[..., None, None].to(cov.dtype) \
+    jitter = torch.clamp_min(diagonal_floor * tr / D, tiny)
+    return cov + jitter[..., None, None].to(cov.dtype) \
         * torch.eye(D, dtype=cov.dtype, device=cov.device)
+
+
+def _invert(cov, config: CacgmmConfig):
+    """Hermitian (..., D, D) -> (precision, logdet): trace-scaled
+    diagonal jitter, then the unpivoted Gauss-Jordan inverse (the kernel
+    for ``inverse='pallas_gj'``)."""
+    cov = add_jitter(cov, config.diagonal_floor)
+    if config.inverse == 'pallas_gj':
+        return hermitian_inverse_and_logdet_2d(cov)
     return gauss_jordan_inverse_and_logdet(cov)
 
 

@@ -5,10 +5,16 @@ into a shared library with a plain C interface, which is loaded with
 ``ctypes`` (no PyTorch headers: the build takes seconds).  The library
 goes to ``<repo>/build/pb_chime5_tpu_torch/``, keyed by a hash of the
 source and the flags, so an edited source rebuilds and an unchanged one
-loads the cached library.  A failed build raises; there is no fallback.
+loads the cached library.  Libraries asked for together build in
+concurrent nvcc processes.  A failed build raises; there is no fallback.
+
+Each library's C entry launches on the stream it is given and returns
+the ``cudaError_t`` of the launch; :func:`kernel_entry` and
+:func:`check_launch` are that convention on the Python side.
 """
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -17,8 +23,10 @@ import threading
 import time
 from pathlib import Path
 
-__all__ = ['load_library', 'build_log', 'find_nvcc', 'BUILD_DIR',
-           'CSRC_DIR']
+import torch
+
+__all__ = ['load_libraries', 'load_library', 'kernel_entry', 'check_launch',
+           'build_log', 'find_nvcc', 'BUILD_DIR', 'CSRC_DIR']
 
 CSRC_DIR = Path(__file__).resolve().parents[2] / 'csrc'
 BUILD_DIR = Path(__file__).resolve().parents[3] / 'build' / \
@@ -50,36 +58,73 @@ def find_nvcc() -> str:
     return found
 
 
-def _build(name: str) -> Path:
+def _library_path(name: str) -> Path:
     source = CSRC_DIR / f'{name}.cu'
     digest = hashlib.sha256(
         source.read_bytes() + ' '.join(NVCC_FLAGS).encode()).hexdigest()
-    lib = BUILD_DIR / f'lib{name}-{digest[:16]}.so'
-    if lib.exists():
-        return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f'.{os.getpid()}.tmp')
-    cmd = [find_nvcc(), *NVCC_FLAGS, '-o', str(tmp), str(source)]
+    return BUILD_DIR / f'lib{name}-{digest[:16]}.so'
+
+
+def _build(names) -> None:
+    """Start one nvcc per library of ``names`` not built yet, all at once,
+    and wait for them all; the compiler output goes to ``<library>.log``."""
+    builds = []
+    for name in names:
+        lib = _library_path(name)
+        if lib.exists():
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = lib.with_suffix(f'.{os.getpid()}.tmp')
+        log = lib.with_suffix('.log')
+        cmd = [find_nvcc(), *NVCC_FLAGS, '-o', str(tmp),
+               str(CSRC_DIR / f'{name}.cu')]
+        with open(log, 'w') as out:
+            out.write(f'{" ".join(cmd)}\n')
+            out.flush()
+            proc = subprocess.Popen(cmd, stdout=out, stderr=subprocess.STDOUT)
+        builds.append((lib, tmp, log, cmd, proc))
     start = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f'nvcc failed ({proc.returncode}) building {source}:\n'
-            f'{" ".join(cmd)}\n{proc.stdout}\n{proc.stderr}')
-    log = lib.with_suffix('.log')
-    log.write_text(f'{" ".join(cmd)}\nbuild_seconds='
-                   f'{time.perf_counter() - start:.3f}\n'
-                   f'{proc.stdout}{proc.stderr}')
-    os.replace(tmp, lib)
-    return lib
+    for lib, tmp, log, cmd, proc in builds:
+        if proc.wait() != 0:
+            raise RuntimeError(f'nvcc failed ({proc.returncode}) building '
+                               f'{lib.name}:\n{log.read_text()}')
+        with open(log, 'a') as out:
+            out.write(f'build_seconds={time.perf_counter() - start:.3f}\n')
+        os.replace(tmp, lib)
+
+
+def load_libraries(names) -> list:
+    """Build (if needed) and load ``csrc/<name>.cu`` for each of
+    ``names``; cached per process."""
+    with _lock:
+        missing = [name for name in names if name not in _libraries]
+        _build(missing)
+        for name in missing:
+            _libraries[name] = ctypes.CDLL(str(_library_path(name)))
+        return [_libraries[name] for name in names]
 
 
 def load_library(name: str) -> ctypes.CDLL:
     """Build (if needed) and load ``csrc/<name>.cu``; cached per process."""
-    with _lock:
-        if name not in _libraries:
-            _libraries[name] = ctypes.CDLL(str(_build(name)))
-        return _libraries[name]
+    return load_libraries([name])[0]
+
+
+@functools.cache
+def kernel_entry(name: str, entry: str, argtypes: tuple):
+    """The C function ``entry`` of library ``name``, typed with
+    ``argtypes``, returning the launch's ``cudaError_t`` as an int."""
+    fn = getattr(load_library(name), entry)
+    fn.argtypes = list(argtypes)
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def check_launch(err: int, name: str) -> None:
+    """Raise if a kernel entry returned a CUDA error."""
+    if err:
+        torch.cuda.cudart()          # the runtime bindings CudaError reads
+        raise RuntimeError(f'{name} kernel launch failed: '
+                           f'{torch.cuda.CudaError(err)}')
 
 
 def build_log(name: str) -> str:

@@ -14,7 +14,7 @@ import ctypes
 
 import torch
 
-from pb_chime5_tpu_torch.ops.kernels._build import load_library
+from pb_chime5_tpu_torch.ops.kernels._build import check_launch, kernel_entry
 
 __all__ = ['fused_em_scatter', 'fused_em_scatter_reference', 'MAX_D',
            'MAX_K']
@@ -26,17 +26,7 @@ MAX_D = 24
 MAX_K = 5
 
 
-def _library():
-    lib = load_library('fused_em')
-    if not hasattr(lib, '_pb_configured'):
-        fn = lib.pb_fused_em_scatter
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + \
-            [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        lib.pb_cuda_error_string.argtypes = [ctypes.c_int]
-        lib.pb_cuda_error_string.restype = ctypes.c_char_p
-        lib._pb_configured = True
-    return lib
+_ARGTYPES = (ctypes.c_void_p,) * 8 + (ctypes.c_int,) * 4 + (ctypes.c_void_p,)
 
 
 def _check(z, params, act, fm):
@@ -84,19 +74,15 @@ def fused_em_scatter(z, params, act, fm):
     if z.device.type != 'cuda':
         raise ValueError(f'unsupported device {z.device}')
     log_weight, precision, logdet = params
-    lib = _library()
+    launch = kernel_entry('fused_em', 'pb_fused_em_scatter', _ARGTYPES)
     S = torch.empty((F, K, D, D), dtype=torch.complex64, device=z.device)
     den = torch.empty((F, K), dtype=torch.float32, device=z.device)
     with torch.cuda.device(z.device):
         stream = torch.cuda.current_stream(z.device).cuda_stream
-        err = lib.pb_fused_em_scatter(
-            z.data_ptr(), precision.data_ptr(), log_weight.data_ptr(),
-            logdet.data_ptr(), act.data_ptr(), fm.data_ptr(),
-            S.data_ptr(), den.data_ptr(), F, T, D, K, stream)
-    if err:
-        raise RuntimeError(
-            f'fused_em kernel launch failed: '
-            f'{lib.pb_cuda_error_string(err).decode()} ({err})')
+        err = launch(z.data_ptr(), precision.data_ptr(), log_weight.data_ptr(),
+                     logdet.data_ptr(), act.data_ptr(), fm.data_ptr(),
+                     S.data_ptr(), den.data_ptr(), F, T, D, K, stream)
+    check_launch(err, 'fused_em')
     fused_em_scatter.launches += 1
     return S, den
 

@@ -147,6 +147,42 @@ def test_post_iterations_match_jax_and_count_launches(rng, post,
     np.testing.assert_allclose(got, want, atol=2e-3)
 
 
+@pytest.mark.parametrize('masked', [False, True])
+def test_pallas_gj_posteriors_match_jax_kernel_backend(rng, masked):
+    """``inverse='pallas_gj'`` (the Gauss-Jordan kernel's plain version on
+    the CPU, FLT_MIN pivot floor) against the JAX fused-kernel EM with its
+    Pallas Gauss-Jordan kernel in interpret mode, at 4 + 1 iterations."""
+    Y, act = _problem(rng)
+    fm = np.arange(Y.shape[1]) < 280 if masked else None
+    want = np.asarray(jax_posteriors(
+        jnp.asarray(Y), jnp.asarray(act),
+        config=JaxCacgmmConfig(iterations=4, iterations_post=1,
+                               em_backend='pallas', inverse='pallas_gj'),
+        frame_mask=None if fm is None else jnp.asarray(fm)))
+    got = cacgmm.cacgmm_posteriors(
+        torch.from_numpy(Y), torch.from_numpy(act),
+        config=cacgmm.CacgmmConfig(iterations=4, iterations_post=1,
+                                   inverse='pallas_gj'),
+        frame_mask=None if fm is None else torch.from_numpy(fm)).numpy()
+    assert got.shape == want.shape == (16, 3, 300)
+    np.testing.assert_allclose(got, want, atol=2e-3)
+
+
+def test_pallas_gj_inverse_runs_once_per_finalize(rng, monkeypatch):
+    Y, act = _problem(rng, F=4, T=100)
+    calls = []
+    real = cacgmm.hermitian_inverse_and_logdet_2d
+    monkeypatch.setattr(cacgmm, 'hermitian_inverse_and_logdet_2d',
+                        lambda B: calls.append(B.shape) or real(B))
+    got = cacgmm.cacgmm_posteriors(
+        torch.from_numpy(Y), torch.from_numpy(act),
+        config=cacgmm.CacgmmConfig(iterations=3, iterations_post=2,
+                                   inverse='pallas_gj'))
+    # one batched (F, K) inverse per E+M pass: 1 + 2 + 1
+    assert calls == [(4, 3, 4, 4)] * 4
+    assert torch.isfinite(got).all()
+
+
 def test_empty_activity_class_stays_finite(rng):
     """A class silent in the whole window must not poison the EM (the
     overflow-aware denominator floor and B = I for empty classes)."""
@@ -168,7 +204,7 @@ def test_empty_activity_class_stays_finite(rng):
 
 
 def test_config_rejects_unported_options():
-    for kw in (dict(inverse='eigh'), dict(inverse='pallas_gj'),
+    for kw in (dict(inverse='eigh'), dict(inverse='cholesky'),
                dict(em_backend='xla')):
         with pytest.raises(NotImplementedError):
             cacgmm.CacgmmConfig(**kw)

@@ -1,0 +1,250 @@
+"""The WPE statistics kernel (K2) and the Gauss-Jordan kernel's two
+entries (K3, K4) vs their plain PyTorch versions, on the card.
+
+Marked ``cuda`` and skipped without a CUDA device (the kernels have no
+CPU or interpret mode); run on a machine with an H100 with
+``python -m pytest --noconftest tests/test_torch_kernels_cuda.py``
+(``tests/conftest.py`` imports JAX).  ``chip_smoke.py`` makes the same
+comparisons at the headline shapes with the inputs and error measures
+defined here; the CPU tests use the same inputs against the JAX package.
+
+Tolerances and their reasons:
+
+* K2: relative Frobenius error of R and of P per frequency <= 1e-5.  Both
+  versions sum ~T float32 products per entry, in other orders (the
+  kernel in t order per entry, cuBLAS in blocked order), and the kernel
+  mirrors R's lower triangle where the plain version computes the upper
+  one.
+* K3 / K4 on well-conditioned HPD input (``random_hpd``): inverse
+  relative Frobenius error per matrix <= 1e-5, logdet absolute <= 1e-4
+  (float32 elimination with condition numbers ~1e2, FMA contraction in
+  the kernel only).
+* K3 on the EM's own kind of input (``em_like_batch``: rank-deficient
+  covariances that only the 1e-6 jitter makes invertible, condition
+  ~1e6): logdet within 1e-3 absolute and inverse within 1e-5 relative
+  Frobenius of the plain version, all outputs finite.  The kernel runs
+  the plain version's operations in its order (they agreed bit for bit
+  on an H100), so the conditioning, which amplifies any difference in
+  rounding, does not widen these.  Its largest residual ||B X - I||_F is
+  also held to <= 2x the plain version's + 1e-6 against float64.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from pb_chime5_tpu_torch import _device
+from pb_chime5_tpu_torch.ops import cacgmm
+from pb_chime5_tpu_torch.ops.kernels import gj_inverse, wpe_stats
+from pb_chime5_tpu_torch.ops.linalg import hermitize
+from pb_chime5_tpu_torch.ops.wpe import build_y_tilde, get_power_inverse
+
+pytestmark = pytest.mark.cuda
+
+STATS_RTOL = 1e-5
+INV_RTOL = 1e-5
+LOGDET_ATOL = 1e-4
+EM_LOGDET_ATOL = 1e-3
+
+GJ_ENTRIES = {
+    'k3': (gj_inverse.hermitian_inverse_and_logdet_2d,
+           gj_inverse.hermitian_inverse_and_logdet_2d_reference),
+    'k4': (gj_inverse.hermitian_inverse_and_logdet,
+           gj_inverse.hermitian_inverse_and_logdet_reference),
+}
+
+
+def wpe_inputs(F, D, T, *, taps=10, delay=2, seed=0, device='cpu'):
+    """(Y_tilde (F, taps*D, T), Y (F, D, T), inv_power (F, T), valid
+    frames) as WPE's first iteration hands them to its statistics:
+    seeded complex noise with a near-silent stretch (1e-4 of the level,
+    inv_power up to ~1e8) and a zero-padded tail of T // 10 masked
+    frames, stacked and weighted by the port's own WPE helpers."""
+    rng = np.random.default_rng(seed)
+    Y = rng.standard_normal((F, D, T)) + 1j * rng.standard_normal((F, D, T))
+    Y[..., T // 3:T // 3 + T // 8] *= 1e-4
+    valid = T - T // 10
+    Y[..., valid:] = 0
+    Y = torch.as_tensor(Y.astype(np.complex64), device=device)
+    fm = torch.arange(T, device=device) < valid
+    Y_tilde = (build_y_tilde(Y, taps, delay) * fm).contiguous()
+    return Y_tilde, Y, get_power_inverse(Y, fm).contiguous(), valid
+
+
+def stats_errors(R, P, R_ref, P_ref):
+    """Largest per-frequency relative Frobenius error of R and of P, and
+    the largest absolute error of either."""
+    def rel(x, ref):
+        diff = torch.linalg.matrix_norm(x - ref)
+        norm = torch.linalg.matrix_norm(ref)
+        return float(torch.where(diff == 0, torch.zeros_like(diff),
+                                 diff / norm).max())
+    max_abs = max(float((R - R_ref).abs().max()),
+                  float((P - P_ref).abs().max()))
+    return rel(R, R_ref), rel(P, P_ref), max_abs
+
+
+def random_hpd(shape, D, *, seed=0, device='cpu'):
+    """Well-conditioned Hermitian PD batch ``A A^H / D + I``."""
+    rng = np.random.default_rng(seed)
+    A = rng.standard_normal((*shape, D, D)) \
+        + 1j * rng.standard_normal((*shape, D, D))
+    B = A @ A.conj().swapaxes(-1, -2) / D + np.eye(D)
+    return torch.as_tensor(B.astype(np.complex64), device=device)
+
+
+def em_like_batch(F, K, D, *, seed=0, device='cpu'):
+    """Covariances as the EM's finalize hands them to its inverse:
+    rank-deficient scatter (rank 1 .. D - 1 per class), trace-normalized,
+    an empty class (B = I), then the 1e-6 trace-scaled jitter
+    (``cacgmm.add_jitter``)."""
+    rng = np.random.default_rng(seed)
+    ranks = rng.integers(1, D, size=(F, K))
+    Z = rng.standard_normal((F, K, D, D)) \
+        + 1j * rng.standard_normal((F, K, D, D))
+    Z = Z * (np.arange(D) < ranks[..., None])[..., None, :]
+    S = Z @ Z.conj().swapaxes(-1, -2)
+    if K > 1:
+        S[:, 1] = 0
+    cov = cacgmm._trace_normalize(hermitize(
+        torch.as_tensor(S.astype(np.complex64))))
+    return cacgmm.add_jitter(cov, 1e-6).to(device).contiguous()
+
+
+def inverse_errors(inv, ld, inv_ref, ld_ref):
+    """Largest per-matrix relative Frobenius error of the inverse, largest
+    absolute logdet error, largest absolute error of either."""
+    rel = torch.linalg.matrix_norm(inv - inv_ref) \
+        / torch.linalg.matrix_norm(inv_ref)
+    dld = (ld - ld_ref).abs()
+    return (float(rel.max()), float(dld.max()),
+            max(float((inv - inv_ref).abs().max()), float(dld.max())))
+
+
+def against_float64(B, inv, ld):
+    """Largest residual ||B X - I||_F and largest logdet error against
+    float64, over the batch."""
+    B64 = B.to(torch.complex128)
+    eye = torch.eye(B.shape[-1], dtype=B64.dtype, device=B.device)
+    res = torch.linalg.matrix_norm(B64 @ inv.to(B64.dtype) - eye)
+    ld64 = torch.linalg.slogdet(B64)[1]
+    return float(res.max()), float((ld.double() - ld64).abs().max())
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device: the kernels have no CPU mode')
+    _device.assert_precision()
+    return torch.device('cuda')
+
+
+# (F, D, T, taps): partial tiles on every axis, P wider than one tile,
+# one frame, and the headline shape
+@pytest.mark.parametrize('shape', [
+    (3, 3, 700, 4), (2, 5, 97, 11), (2, 50, 40, 2), (1, 1, 1, 1),
+    (513, 24, 2504, 10),
+], ids=lambda s: 'F{}-D{}-T{}-taps{}'.format(*s))
+def test_wpe_stats_matches_reference(cuda, shape):
+    F, D, T, taps = shape
+    Yt, Y, w, _ = wpe_inputs(F, D, T, taps=taps, seed=3, device=cuda)
+    before = wpe_stats.wpe_statistics.launches
+    R, P = wpe_stats.wpe_statistics(Yt, Y, w)
+    torch.cuda.synchronize()
+    assert wpe_stats.wpe_statistics.launches == before + 1
+    rel_R, rel_P, _ = stats_errors(R, P,
+                                   *wpe_stats.wpe_statistics_reference(
+                                       Yt, Y, w))
+    assert torch.isfinite(R).all() and torch.isfinite(P).all()
+    assert rel_R <= STATS_RTOL and rel_P <= STATS_RTOL, (rel_R, rel_P)
+    # the upper triangle is the conjugate mirror of the lower one
+    assert torch.equal(R.transpose(-2, -1).conj().tril(-1), R.tril(-1))
+
+
+def test_wpe_stats_is_deterministic(cuda):
+    inputs = wpe_inputs(32, 24, 900, seed=4, device=cuda)[:3]
+    R1, P1 = wpe_stats.wpe_statistics(*inputs)
+    R2, P2 = wpe_stats.wpe_statistics(*inputs)
+    assert torch.equal(R1, R2) and torch.equal(P1, P2)
+
+
+def test_wpe_stats_rejects_unsupported_inputs(cuda):
+    Yt, Y, w, _ = wpe_inputs(2, 3, 50, taps=2, seed=5, device=cuda)
+    before = wpe_stats.wpe_statistics.launches
+    for args in ((Yt.to(torch.complex128), Y, w), (Yt, Y, w.double()),
+                 (Yt, Y[:, :, :40], w), (Yt, Y.transpose(0, 1)
+                                         .contiguous().transpose(0, 1), w),
+                 (Yt, Y.cpu(), w)):
+        with pytest.raises(ValueError):
+            wpe_stats.wpe_statistics(*args)
+    assert wpe_stats.wpe_statistics.launches == before
+
+
+@pytest.mark.parametrize('entry', sorted(GJ_ENTRIES))
+@pytest.mark.parametrize('shape,D', [
+    ((7,), 1), ((5,), 4), ((3, 4), 13), ((2,), 32), ((513, 5), 24),
+], ids=lambda v: str(v))
+def test_gj_matches_reference_on_hpd(cuda, entry, shape, D):
+    kernel, reference = GJ_ENTRIES[entry]
+    B = random_hpd(shape, D, seed=6, device=cuda)
+    before = kernel.launches
+    inv, ld = kernel(B)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    assert inv.shape == B.shape and ld.shape == B.shape[:-2]
+    rel, dld, _ = inverse_errors(inv, ld, *reference(B))
+    assert rel <= INV_RTOL and dld <= LOGDET_ATOL, (rel, dld)
+
+
+def test_gj_on_em_like_batch(cuda):
+    B = em_like_batch(513, 5, 24, seed=7, device=cuda)
+    inv, ld = gj_inverse.hermitian_inverse_and_logdet_2d(B)
+    inv_ref, ld_ref = gj_inverse.hermitian_inverse_and_logdet_2d_reference(B)
+    assert torch.isfinite(inv).all() and torch.isfinite(ld).all()
+    rel, dld, _ = inverse_errors(inv, ld, inv_ref, ld_ref)
+    assert rel <= INV_RTOL and dld <= EM_LOGDET_ATOL, (rel, dld)
+    res, _ = against_float64(B, inv, ld)
+    res_ref, _ = against_float64(B, inv_ref, ld_ref)
+    assert res <= 2 * res_ref + 1e-6, (res, res_ref)
+
+
+def test_gj_floor_modes_differ_on_a_negative_pivot(cuda):
+    B = negative_pivot_matrix().to(cuda)
+    for entry, (kernel, reference) in GJ_ENTRIES.items():
+        inv, ld = kernel(B)
+        inv_ref, ld_ref = reference(B)
+        torch.testing.assert_close(ld, ld_ref, rtol=1e-6, atol=0)
+        torch.testing.assert_close(inv, inv_ref, rtol=1e-5, atol=0)
+    assert float(gj_inverse.hermitian_inverse_and_logdet(B)[1]) == \
+        -float('inf')
+
+
+def test_gj_is_deterministic(cuda):
+    B = em_like_batch(64, 5, 24, seed=8, device=cuda)
+    for kernel, _ in GJ_ENTRIES.values():
+        inv1, ld1 = kernel(B)
+        inv2, ld2 = kernel(B)
+        assert torch.equal(inv1, inv2) and torch.equal(ld1, ld2)
+
+
+def test_gj_rejects_unsupported_inputs(cuda):
+    before = {k: e.launches for k, (e, _) in GJ_ENTRIES.items()}
+    for B in (random_hpd((2,), gj_inverse.MAX_D + 1, device=cuda),
+              random_hpd((2,), 4, device=cuda).to(torch.complex128),
+              random_hpd((2,), 4, device=cuda).transpose(-2, -1),
+              random_hpd((0,), 4, device=cuda)):
+        for kernel, _ in GJ_ENTRIES.values():
+            with pytest.raises(ValueError):
+                kernel(B)
+    assert before == {k: e.launches for k, (e, _) in GJ_ENTRIES.items()}
+
+
+def negative_pivot_matrix(D=6, seed=0):
+    """One Hermitian matrix, near the identity, whose last pivot is
+    negative (-0.5): K3 floors it to FLT_MIN (a logdet term of -87.34 and
+    a ~1e37 last row), K4 takes its reciprocal and a logdet of -inf."""
+    rng = np.random.default_rng(seed)
+    E = rng.standard_normal((D, D)) + 1j * rng.standard_normal((D, D))
+    B = np.eye(D) + 0.01 * (E + E.conj().T) / 2
+    B[-1, -1] = -0.5
+    return torch.as_tensor(B[None].astype(np.complex64))
