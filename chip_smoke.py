@@ -6,17 +6,23 @@
 Phases (the first failure ends the run with a non-zero exit code):
 
 1. device: a CUDA card is required; the TF32 pins are asserted;
-2. build: the three kernel libraries (``csrc/fused_em.cu``,
-   ``csrc/wpe_stats.cu``, ``csrc/gj_inverse.cu``) are compiled by
-   concurrent nvcc processes; each kernel's registers and spills are
-   printed;
+2. build: the four kernel libraries (``csrc/fused_em.cu``,
+   ``csrc/wpe_stats.cu``, ``csrc/gj_inverse.cu``, ``csrc/chol_solve.cu``)
+   are compiled by concurrent nvcc processes; each kernel's registers and
+   spills are printed;
 3. kernels vs plain, at the shapes of the headline utterance, each timed
    with CUDA events in turns (plain, kernel, library call, and back)
    beside its bound (the larger of its bytes over 3.35 TB/s and its
    operations over the 67 TFLOP/s fp32 rate, H100 SXM data sheet):
    K1 the fused E+M kernel (F=513, T=2504, D=24, K=5), K2 the WPE
    statistics (F=513, dim=240, D=24, T=2504), K3 / K4 the Gauss-Jordan
-   inverse's two entries on the EM's (513, 5, 24, 24) batch;
+   inverse's two entries on the EM's (513, 5, 24, 24) batch, K5 the
+   blocked Cholesky solve on 513 WPE-sized systems (240 x 240 complex as
+   a 512 x 512 real block, 24 right-hand sides) beside ``cholesky_ex`` +
+   ``cholesky_solve`` on the same complex system, then the WPE solve's
+   slot (``hermitian_solve_pallas`` vs the port's cuSOLVER
+   ``hermitian_solve``, each from the raw system) and K5's device time
+   from a CUDA graph;
 4. default path: a synthetic 6-array x 4-mic PCM16 CHiME-5 session -> DB
    JSON -> the port's CLI ``test_run`` (2 utterances, default
    ``GssConfig``, K = 5 with the garbage class) on the card; the fused
@@ -29,7 +35,21 @@ Phases (the first failure ends the run with a non-zero exit code):
    bss_em_backend='pallas', bss_inverse='pallas_gj', wpe_stats_backend=
    'pallas')`` on the ~40 s utterance, warm: 20 K1, 20 K3 and 3 K2
    launches, a finite non-silent WAV of the utterance's length, its stage
-   times beside the default path's; the small scene card vs CPU again.
+   times beside the default path's; the small scene card vs CPU again;
+6. the WPE systems of P06: the first WPE iteration's R and P of the
+   ~40 s utterance, solved by K5, its plain version and the port's
+   ``hermitian_solve`` (cuSOLVER); per-frequency residuals of the loaded,
+   equilibrated system in float64 and the pairwise differences of G; K5's
+   largest residual must be <= 2x its plain version's + 1e-6;
+7. options path: the session ``Enhancer`` on P06, warm, once for each of
+   ``bf='gev_ban'``, ``bf='lcmv'``, the WPE options (``psd_context=1,
+   chunk_size=512, solve_refine=1``), ``bss_inverse='cholesky'`` and
+   ``'eigh'``: 20 K1 launches and no other kernel, a finite non-silent WAV
+   of the utterance's length, wall and stage times; on the small scene
+   at a 10-iteration EM each option (and ``ch2`` / ``sum``) card vs CPU,
+   with the SIR gate for the separating beamformers, GEV without BAN and
+   GEV + BAN with WPE printed beside them (not gated), and ``'schur'`` on
+   the CPU alone.
 
 Before each path's run every kernel's launch count is set to 0, and it is
 read right after.  It imports the port (``pb_chime5_tpu_torch``) and the
@@ -61,12 +81,15 @@ INV_RTOL = 1e-5      # K3/K4 on HPD input: relative Frobenius of the inverse
 LOGDET_ATOL = 1e-4   # K3/K4 on HPD input: absolute logdet error
 EM_INV_RTOL = 1e-5   # K3/K4 on the EM-like batch, against the plain version
 EM_LOGDET_ATOL = 1e-3
+SOLVE_RTOL = 1e-5    # K5 vs its plain version: relative Frobenius per freq.
+SOLVE_F64_RTOL = 1e-4  # K5 vs a float64 solve of the same loaded system
+WPE_LOAD = 1e-4      # the WPE filter solve's relative diagonal load
 SCENE_ATOL = 1e-2    # card vs CPU waveform, fraction of the peak
 EM_PASSES = 20       # fused E+M passes per utterance at 20 + 1 iterations
 WPE_ITERATIONS = 3
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 FP32_FLOP_PER_S = 67e12       # H100 SXM data sheet, CUDA cores
-LIBRARIES = ('fused_em', 'wpe_stats', 'gj_inverse')
+LIBRARIES = ('fused_em', 'wpe_stats', 'gj_inverse', 'chol_solve')
 
 
 def imported_jax():
@@ -311,6 +334,88 @@ def gj_vs_plain(torch, gj_inverse):
     return out
 
 
+def k5_vs_plain(torch, chol_solve):
+    """K5 at the WPE headline: 513 well-conditioned HPD systems of
+    240 x 240 with 24 right-hand sides, through ``hermitian_solve_pallas``
+    (against its plain version and a float64 solve of the same loaded
+    system) and the zero-pivot floor pin; then ``chol_solve_real_spd`` on
+    the real block form timed beside its plain version and cuSOLVER's
+    ``cholesky_ex`` + ``cholesky_solve`` on the complex system."""
+    from pb_chime5_tpu_torch.ops import linalg
+    from tests.test_torch_kernels_cuda import (
+        frobenius_errors, hpd_system, solve_error_f64)
+    F, D, E = HEADLINE[0], WPE_TAPS * HEADLINE[2], HEADLINE[2]
+    A, B = hpd_system(F, D, E, seed=14, device='cuda')
+    entry = chol_solve.hermitian_solve_pallas
+    before = entry.launches
+    X = entry(A, B, relative_load=WPE_LOAD)
+    torch.cuda.synchronize()
+    check(entry.launches == before + 1, 'K5 did not count its launch')
+    check(bool(torch.isfinite(X).all()), 'K5 output is not finite')
+    ref = chol_solve.hermitian_solve_pallas_reference(
+        A, B, relative_load=WPE_LOAD)
+    rel = frobenius_errors(X, ref)
+    rel64 = solve_error_f64(X, A, B, WPE_LOAD)
+    rel64_ref = solve_error_f64(ref, A, B, WPE_LOAD)
+    max_abs = float((X - ref).abs().max())
+    print(f'hermitian_solve_pallas: vs plain {rel:.3e} (<= {SOLVE_RTOL}), '
+          f'vs float64 {rel64:.3e} (<= {SOLVE_F64_RTOL}; plain '
+          f'{rel64_ref:.3e}), max_abs {max_abs:.3e}', flush=True)
+    check(rel <= SOLVE_RTOL, 'K5 disagrees with its plain version')
+    check(rel64 <= SOLVE_F64_RTOL, 'K5 disagrees with a float64 solve')
+    pin = torch.eye(64, device='cuda')[None].contiguous()
+    pin[0, 5, 5] = 0
+    rhs = torch.zeros((1, 64, 3), device='cuda')
+    rhs[0, 5, 0] = 1
+    x_pin = float(chol_solve.chol_solve_real_spd(pin, rhs)[0, 5, 0])
+    print(f'zero pivot: X[5, 0] = {x_pin:.7e} (1 / FLT_MIN = '
+          f'{1 / torch.finfo(torch.float32).tiny:.7e})', flush=True)
+    check(x_pin == 1 / torch.finfo(torch.float32).tiny,
+          'K5 does not floor a zero pivot at FLT_MIN')
+    del X, ref
+    _, As, Bs, _ = linalg.equilibrate(A, B, WPE_LOAD)
+    A2, B2 = chol_solve.real_block_form(As, Bs)
+
+    def library():
+        L, _ = torch.linalg.cholesky_ex(As)
+        return torch.cholesky_solve(Bs, L)
+    t = in_turns(torch, {
+        'plain': (lambda: chol_solve.chol_solve_real_spd_reference(A2, B2),
+                  1),
+        'kernel': (lambda: chol_solve.chol_solve_real_spd(A2, B2), 5),
+        'library': (library, 3)})
+    # the complex Hermitian Cholesky (4 D^3 / 3) and two substitutions
+    # (8 D^2 E); R's lower triangle, P and G moved once
+    flops = F * (4 * D ** 3 / 3 + 8 * D * D * E)
+    bound_ms, bound_by = bound(F * (D * (D + 1) // 2 + 2 * D * E) * 8, flops)
+    print_times(f'chol_solve_real_spd at F,S,E=({F}, {A2.shape[1]}, {E}) '
+                f'(complex D={D})', t, bound_ms, bound_by)
+    # the WPE solve's slot: each entry from the raw A, B, its conditioning
+    # (and, for K5, the real block form and the work copy) included
+    solves = {
+        'hermitian_solve_pallas': lambda: chol_solve.hermitian_solve_pallas(
+            A, B, relative_load=WPE_LOAD),
+        'hermitian_solve': lambda: linalg.hermitian_solve(
+            A, B, relative_load=WPE_LOAD)}
+    slot = in_turns(torch, {'hermitian_solve_pallas': (
+        solves['hermitian_solve_pallas'], 5), 'hermitian_solve': (
+            solves['hermitian_solve'], 3)})
+    print(f'WPE solve slot, A, B -> X: hermitian_solve_pallas (K5) '
+          f'{slot["hermitian_solve_pallas"]:.4f} ms, hermitian_solve '
+          f'(cuSOLVER) {slot["hermitian_solve"]:.4f} ms', flush=True)
+    # device time alone (hermitian_solve syncs on its factorization's
+    # status, so it has no graph)
+    kernel_ms = graph_ms(
+        torch, lambda: chol_solve.chol_solve_real_spd(A2, B2), 5)
+    print(f'chol_solve device time from a CUDA graph: kernel '
+          f'{kernel_ms:.4f} ms, hermitian_solve_pallas '
+          f'{graph_ms(torch, solves["hermitian_solve_pallas"], 5):.4f} ms',
+          flush=True)
+    return dict(max_abs_err=max_abs, ms=t['kernel'], plain_ms=t['plain'],
+                library_ms=t['library'], bound_ms=bound_ms,
+                bound_by=bound_by)
+
+
 def make_corpus(root):
     """Synthetic S02 session: 6 arrays x 4 mics, 4 speakers, PCM16, 64 s
     (the second utterance's +-15 s context gives ~40 s of observation)."""
@@ -348,11 +453,13 @@ def small_scene(seconds=3.0, D=4, seed=0):
     return obs.astype(np.float32), activity, (b0, b1)
 
 
-def card_vs_cpu(torch, cfg, label):
+def card_vs_cpu(torch, cfg, label, separates=True, gated=True):
     """The whole chain on a small scene, on the card and on the CPU path
     (the kernels' plain versions): waveforms within SCENE_ATOL of the
-    peak, and the target-only vs interferer-only energy ratio raised by
-    > 30x (the bound tests/test_gss_pipeline.py holds the JAX chain to)."""
+    peak, and, where the beamformer ``separates``, the target-only vs
+    interferer-only energy ratio raised by > 30x (the bound
+    tests/test_gss_pipeline.py holds the JAX chain to).  Not ``gated``:
+    both printed, only a finite output required."""
     import numpy as np
     from pb_chime5_tpu_torch.models.gss import gss_enhance
     from pb_chime5_tpu_torch.utils import activity_time_to_frequency
@@ -367,18 +474,25 @@ def card_vs_cpu(torch, cfg, label):
     err = float(np.abs(outs['cuda'] - outs['cpu']).max()
                 / np.abs(outs['cpu']).max())
     x = outs['cuda']
+    gain = sir_gain(obs, x, b0, b1)
+    separates = separates and gated
+    print(f'small scene, {label}: card vs CPU {err:.3e} of the peak '
+          f'{f"(<= {SCENE_ATOL})" if gated else "(not gated)"}; SIR gain '
+          f'{gain:.1f}x{" (> 30)" if separates else " (not gated)"}',
+          flush=True)
+    check(np.isfinite(x).all() and (err <= SCENE_ATOL or not gated),
+          f'card and CPU paths disagree on the small scene ({label})')
+    check(gain > 30 or not separates,
+          f'the chain does not separate the small scene ({label})')
+    return obs, act
 
+
+def sir_gain(obs, x, b0, b1):
+    """Target-only over interferer-only energy, output over input."""
     def energy(sig, lo, hi):
         return float((sig[..., lo:hi] ** 2).mean())
-
-    gain = (energy(x, 0, b1) / max(energy(x, b0, x.shape[-1]), 1e-12)) / (
+    return (energy(x, 0, b1) / max(energy(x, b0, x.shape[-1]), 1e-12)) / (
         energy(obs[0], 0, b1) / energy(obs[0], b0, obs.shape[-1]))
-    print(f'small scene, {label}: card vs CPU {err:.3e} of the peak '
-          f'(<= {SCENE_ATOL}); SIR gain {gain:.1f}x (> 30)', flush=True)
-    check(np.isfinite(x).all() and err <= SCENE_ATOL,
-          f'card and CPU paths disagree on the small scene ({label})')
-    check(gain > 30, f'the chain does not separate the small scene ({label})')
-    return obs, act
 
 
 def pipeline_trim(torch, cfg, obs, act):
@@ -517,10 +631,10 @@ def all_pallas_path(torch, counts, enhancer, examples):
     wall = time.perf_counter() - start
     launches = counts.read()
     print(f'all-Pallas path launches: {launches}', flush=True)
-    expected = {'fused_em_scatter': EM_PASSES,
+    expected = {**dict.fromkeys(launches, 0),
+                'fused_em_scatter': EM_PASSES,
                 'hermitian_inverse_and_logdet_2d': EM_PASSES,
-                'wpe_statistics': WPE_ITERATIONS,
-                'hermitian_inverse_and_logdet': 0}
+                'wpe_statistics': WPE_ITERATIONS}
     check(launches == expected,
           f'all-Pallas launches {launches}, expected {expected}')
     check_wav(ex, x)
@@ -540,14 +654,157 @@ def all_pallas_path(torch, counts, enhancer, examples):
     return launches
 
 
+def wpe_systems(torch, chol_solve, enhancer, examples):
+    """Phase 6: the first WPE iteration's systems of the longest
+    utterance (R (513, 240, 240), P (513, 240, 24) of its STFT, as
+    ``ops/wpe.py`` builds them), solved by K5, its plain version and the
+    port's cuSOLVER ``hermitian_solve`` at the WPE load."""
+    import numpy as np
+    from pb_chime5_tpu_torch.models import gss
+    from pb_chime5_tpu_torch.models.gss import GssConfig
+    from pb_chime5_tpu_torch.ops import linalg, wpe
+    from pb_chime5_tpu_torch.ops.kernels.wpe_stats import (
+        wpe_statistics_reference)
+    ex = max(examples, key=observation_seconds)
+    _, obs = enhancer._prepare_example(ex)
+    Y = gss._stft_and_mask(torch.from_numpy(obs).cuda(), None,
+                           GssConfig())[0]
+    Y_tilde = wpe.build_y_tilde(Y, WPE_TAPS, 2)
+    R, P = wpe_statistics_reference(Y_tilde, Y, wpe.get_power_inverse(Y))
+    del Y_tilde
+    R = linalg.hermitize(R)
+    solvers = {
+        'k5': chol_solve.hermitian_solve_pallas,
+        'plain': chol_solve.hermitian_solve_pallas_reference,
+        'cusolver': linalg.hermitian_solve}
+    G = {name: fn(R, P, relative_load=WPE_LOAD)
+         for name, fn in solvers.items()}
+    torch.cuda.synchronize()
+    # residuals of the loaded, equilibrated system, in float64
+    _, As, Bs, sinv = linalg.equilibrate(R, P, WPE_LOAD)
+    As, Bs = As.to(torch.complex128), Bs.to(torch.complex128)
+    ew = torch.linalg.eigvalsh(As)
+    cond = (ew[:, -1] / ew[:, 0]).cpu().numpy()
+    print(f'P06 WPE systems: F={R.shape[0]}, dim={R.shape[1]}, '
+          f'D={P.shape[2]}, T={Y.shape[2]}; condition of the loaded, '
+          f'equilibrated R: median {np.median(cond):.3e}, max '
+          f'{cond.max():.3e}', flush=True)
+    res = {}
+    for name, g in G.items():
+        check(bool(torch.isfinite(g).all()), f'{name}: G is not finite')
+        Xs = g.to(torch.complex128) / sinv[..., None].to(torch.complex128)
+        r = (torch.linalg.matrix_norm(As @ Xs - Bs)
+             / torch.linalg.matrix_norm(Bs)).cpu().numpy()
+        res[name] = float(r.max())
+        print(f'  {name}: residual ||R_s G - P_s|| / ||P_s|| median '
+              f'{np.median(r):.3e}, max {r.max():.3e}', flush=True)
+    for a, b in (('k5', 'plain'), ('k5', 'cusolver'), ('plain', 'cusolver')):
+        d = (torch.linalg.matrix_norm(G[a] - G[b])
+             / torch.linalg.matrix_norm(G[b])).cpu().numpy()
+        print(f'  |G_{a} - G_{b}| / |G_{b}|: median {np.median(d):.3e}, '
+              f'max {d.max():.3e}', flush=True)
+    check(res['k5'] <= 2 * res['plain'] + 1e-6,
+          'K5 has a larger residual than its plain version on P06')
+    check(not imported_jax(), 'the run imported jax or the JAX package')
+
+
+OPTIONS = {           # phase 7 on P06: GssConfig fields of each option
+    'gev_ban': dict(bf='gev_ban'),
+    'lcmv': dict(bf='lcmv'),
+    'wpe_options': dict(wpe_psd_context=1, wpe_chunk_size=512,
+                        wpe_solve_refine=1),
+    'cholesky': dict(bss_inverse='cholesky'),
+    'eigh': dict(bss_inverse='eigh'),
+}
+# the small scene, card vs CPU, at the 10-iteration EM of the other
+# phases: each option and ch2 / sum.  GEV + BAN runs without WPE, as
+# tests/test_gss_pipeline.py runs it.  LCMV runs with WPE: without it, its
+# SIR gain on this scene is 13x, under the 30x gate (the JAX test holds
+# LCMV to 10x)
+SCENE_OPTIONS = {
+    'gev_ban': (dict(bf='gev_ban', wpe=False), True),
+    'lcmv': (dict(bf='lcmv'), True),
+    'lcmv_ban': (dict(bf='lcmv_ban'), True),
+    'ch2': (dict(bf='ch2'), False),
+    'sum': (dict(bf='sum'), False),
+    **{name: (kw, True) for name, kw in OPTIONS.items()
+       if name not in ('gev_ban', 'lcmv')},
+}
+# printed, not gated (PERF.md, PR 3 findings): GEV without BAN puts 2/3
+# of this scene's output in one bin at a generalized eigenvalue of 5e4,
+# where it reads the EM's posteriors below float32 resolution (an additive
+# 1e-6 moves it by 1.8e-2 of the peak, MVDR + BAN by 5e-7); and GEV turns
+# WPE's float32 rounding into a few 1e-2 of the peak (with WPE in float64
+# it does not; scripts_dev/diag_torch_scene_precision.py)
+SCENE_UNGATED = {
+    'gev': dict(bf='gev', wpe=False),
+    'gev_ban with WPE': dict(bf='gev_ban'),
+}
+SCENE_ITERATIONS = 10
+
+
+def options_path(torch, counts, enhancer, examples):
+    """Phase 7: the session ``Enhancer`` on the longest utterance, warm,
+    once for each option of OPTIONS (20 K1 launches, nothing else), then
+    the small scene per option."""
+    import numpy as np
+    from pb_chime5_tpu_torch.models import gss
+    from pb_chime5_tpu_torch.models.gss import GssConfig, gss_enhance
+    ex = max(examples, key=observation_seconds)
+    obs_s = observation_seconds(ex)
+    for name, fields in OPTIONS.items():
+        e = dataclasses.replace(enhancer, gss_config=GssConfig(**fields))
+        e.enhance_example(ex)                 # warm-up
+        torch.cuda.synchronize()
+        counts.reset()
+        start = time.perf_counter()
+        x = e.enhance_example(ex)
+        wall = time.perf_counter() - start
+        launches = counts.read()
+        expected = dict.fromkeys(launches, 0)
+        expected['fused_em_scatter'] = EM_PASSES
+        print(f'option {name} launches: {launches}', flush=True)
+        check(launches == expected,
+              f'option {name}: launches {launches}, expected {expected}')
+        check_wav(ex, x)
+        print(f'option {name} utterance {ex["example_id"]}: wall '
+              f'{wall:.4f} s, xRT emitted {len(x) / 16000 / wall:.3f}, '
+              f'xRT observation {obs_s / wall:.3f}', flush=True)
+        print('stages', json.dumps({'utterance': ex['example_id'],
+                                    'config': name,
+                                    **stage_times(gss, e, ex)}), flush=True)
+    for name, (fields, separates) in SCENE_OPTIONS.items():
+        card_vs_cpu(torch, GssConfig(bss_iterations=SCENE_ITERATIONS,
+                                     **fields), name, separates)
+    for name, fields in SCENE_UNGATED.items():
+        card_vs_cpu(torch, GssConfig(bss_iterations=SCENE_ITERATIONS,
+                                     **fields), name, gated=False)
+    from pb_chime5_tpu_torch.utils import activity_time_to_frequency
+    obs, activity, (b0, b1) = small_scene()
+    act = torch.from_numpy(activity_time_to_frequency(
+        activity, 1024, 256, stft_fading=True, stft_pad=True))
+    # 'schur' loses positive definiteness in float32 on converged EM
+    # covariances (the JAX _invert's note): held on the CPU alone
+    x = gss_enhance(torch.from_numpy(obs), act, 0, config=GssConfig(
+        bss_iterations=SCENE_ITERATIONS, bss_inverse='schur'))[0].numpy()
+    gain = sir_gain(obs, x, b0, b1)
+    print(f'small scene, schur on the CPU: SIR gain {gain:.1f}x (> 30)',
+          flush=True)
+    check(np.isfinite(x).all() and gain > 30,
+          'the schur EM does not separate the small scene on the CPU')
+    check(not imported_jax(), 'the run imported jax or the JAX package')
+
+
 class LaunchCounts:
     """The launch counters of every kernel entry of the port."""
 
-    def __init__(self, fused_em, wpe_stats, gj_inverse):
+    def __init__(self, fused_em, wpe_stats, gj_inverse, chol_solve):
         self.entries = (fused_em.fused_em_scatter,
                         wpe_stats.wpe_statistics,
                         gj_inverse.hermitian_inverse_and_logdet_2d,
-                        gj_inverse.hermitian_inverse_and_logdet)
+                        gj_inverse.hermitian_inverse_and_logdet,
+                        chol_solve.chol_solve_real_spd,
+                        chol_solve.hermitian_solve_pallas)
 
     def reset(self):
         for entry in self.entries:
@@ -585,7 +842,7 @@ def main():
                  'smoke run needs one CUDA card')
     from pb_chime5_tpu_torch import _device
     from pb_chime5_tpu_torch.ops.kernels import (
-        _build, fused_em, gj_inverse, wpe_stats)
+        _build, chol_solve, fused_em, gj_inverse, wpe_stats)
 
     print('== 1 device', flush=True)
     card = subprocess.run(
@@ -603,10 +860,11 @@ def main():
     print('== 3 kernels vs plain', flush=True)
     results = {'fused_em_scatter': k1_vs_plain(torch, fused_em),
                'wpe_statistics': k2_vs_plain(torch, wpe_stats),
-               **gj_vs_plain(torch, gj_inverse)}
+               **gj_vs_plain(torch, gj_inverse),
+               'chol_solve_real_spd': k5_vs_plain(torch, chol_solve)}
     torch.cuda.empty_cache()
 
-    counts = LaunchCounts(fused_em, wpe_stats, gj_inverse)
+    counts = LaunchCounts(fused_em, wpe_stats, gj_inverse, chol_solve)
     (REPO / 'build').mkdir(exist_ok=True)
     work = Path(tempfile.mkdtemp(prefix='chip_smoke_', dir=REPO / 'build'))
     try:
@@ -615,6 +873,12 @@ def main():
             torch, counts, work)
         print('== 5 all-Pallas path', flush=True)
         pallas_launches = all_pallas_path(torch, counts, enhancer, examples)
+        torch.cuda.empty_cache()
+        print('== 6 WPE systems of P06', flush=True)
+        wpe_systems(torch, chol_solve, enhancer, examples)
+        torch.cuda.empty_cache()
+        print('== 7 options path', flush=True)
+        options_path(torch, counts, enhancer, examples)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -626,11 +890,14 @@ def main():
         'hermitian_inverse_and_logdet_2d': ('gj_inverse.cu',
                                             'gj_inverse2d.py:67',
                                             pallas_launches),
-        # entry point only: no GssConfig reaches it
+        # entry points only: no GssConfig reaches them
         'hermitian_inverse_and_logdet': ('gj_inverse.cu',
                                          'hermitian_inverse.py:34',
                                          pallas_launches),
+        'chol_solve_real_spd': ('chol_solve.cu', 'chol_solve.py:50',
+                                pallas_launches),
     }
+    off_path = ('hermitian_inverse_and_logdet', 'chol_solve_real_spd')
     kernels = []
     for name, (source, replaces, launches) in sources.items():
         kernels.append({
@@ -638,7 +905,7 @@ def main():
             'source': f'pb_chime5_tpu_torch/csrc/{source}',
             'replaces': f'pb_chime5_tpu/ops/pallas/{replaces}',
             'launches': launches[name], **results[name],
-            'on_main_path': name != 'hermitian_inverse_and_logdet'})
+            'on_main_path': name not in off_path})
     print(card, flush=True)
     print(json.dumps({'kernels': kernels}), flush=True)
     print(json.dumps({'ok': True, 'device': {

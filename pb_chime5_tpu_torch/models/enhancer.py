@@ -408,6 +408,11 @@ def get_enhancer(
     assert wpe is True or wpe is False, wpe
     assert activity_path is None or activity_type == 'path', \
         (activity_path, activity_type)
+    if str(bf).startswith('lcmv'):
+        # the LCMV beamformer treats the LAST mask class as the noise PSD
+        assert activity_garbage_class not in (False, None), (
+            'bf=lcmv requires a garbage (noise) class: set '
+            'activity_garbage_class=True')
     if device_audio_cache:
         raise NotImplementedError(
             'device_audio_cache is not ported yet (ROADMAP.md, Queue 1); '

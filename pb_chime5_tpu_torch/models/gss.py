@@ -1,7 +1,8 @@
 """The GSS enhancement chain — port of ``pb_chime5_tpu/models/gss.py``.
 
     STFT -> WPE -> cacGMM EM ("GSS") -> mask context drop ->
-    MVDR-Souden (+BAN) -> optional mask postfilter -> iSTFT -> output trim
+    MVDR-Souden / GEV (+BAN) / LCMV (+BAN) / ch2 / sum
+    -> optional mask postfilter -> iSTFT -> output trim
 
 :func:`gss_enhance` runs the chain eagerly on the device of its input
 (no tracing, no compile step); :class:`GssPipeline` is the host wrapper
@@ -26,6 +27,9 @@ from pb_chime5_tpu_torch.ops.wpe import wpe
 __all__ = ['GssConfig', 'gss_enhance', 'GssPipeline', 'record_stage_times']
 
 _ROADMAP = 'not ported yet (see ROADMAP.md, Queue 1)'
+BEAMFORMERS = ('mvdrSouden_ban', 'mvdr_souden', 'gev_ban', 'gev', 'lcmv',
+               'lcmv_ban', 'ch2', 'sum')
+FLOAT64_BEAMFORMERS = ('gev_ban', 'gev', 'lcmv', 'lcmv_ban')   # _beamform
 
 STAGES = ('stft', 'wpe', 'em', 'beamform', 'istft')
 _stage_events = None     # CUDA events of gss_enhance inside record_stage_times
@@ -68,9 +72,12 @@ class GssConfig:
     defaults and the ported kernels: the all-Pallas configuration
     ``GssConfig(bss_em_backend='pallas', bss_inverse='pallas_gj',
     wpe_stats_backend='pallas')`` runs the statistics and Gauss-Jordan
-    kernels beside the fused E+M kernel.  Every other value, and every
-    option of the chain that is not ported yet, raises
-    ``NotImplementedError`` at construction.
+    kernels beside the fused E+M kernel.  The chain's options are ported:
+    WPE ``psd_context``, ``chunk_size`` and ``solve_refine``, the EM
+    inverses 'cholesky', 'schur' and 'eigh', and every beamformer of
+    :data:`BEAMFORMERS`.  Every other value, and every option that is not
+    ported yet, raises ``NotImplementedError`` at construction; a value no
+    configuration could take (a negative count) raises ``ValueError``.
     """
     stft_size: int = 1024
     stft_shift: int = 256
@@ -91,7 +98,8 @@ class GssConfig:
     bss_iterations_post: int = 1
     # the fused E+M kernel ('pallas' is the JAX name of the same choice)
     bss_em_backend: str = 'auto'
-    # 'gauss_jordan' / 'auto' (plain GJ) | 'pallas_gj' (the GJ kernel)
+    # 'gauss_jordan' / 'auto' (plain GJ) | 'pallas_gj' (the GJ kernel) |
+    # 'cholesky' | 'schur' | 'eigh'
     bss_inverse: str = 'gauss_jordan'
 
     bf: str = 'mvdrSouden_ban'
@@ -99,14 +107,20 @@ class GssConfig:
     compile_mode: str = 'fused'
 
     def __post_init__(self):
+        counts = {
+            'wpe_psd_context': self.wpe_psd_context >= 0,
+            'wpe_chunk_size': self.wpe_chunk_size is None
+            or self.wpe_chunk_size >= 1,
+            'wpe_solve_refine': self.wpe_solve_refine >= 0,
+        }
+        for name, ok in counts.items():
+            if not ok:
+                raise ValueError(f'{name}={getattr(self, name)!r}')
         checks = {
-            'wpe_psd_context': self.wpe_psd_context == 0,
-            'wpe_chunk_size': self.wpe_chunk_size is None,
             'wpe_precision': self.wpe_precision == 'highest',
             'wpe_stats_backend': self.wpe_stats_backend in (
                 'auto', 'xla', 'pallas'),
-            'wpe_solve_refine': self.wpe_solve_refine == 0,
-            'bf': self.bf in ('mvdrSouden_ban', 'mvdr_souden'),
+            'bf': self.bf in BEAMFORMERS,
             'postfilter': self.postfilter in (None, 'mask_mul'),
             'compile_mode': self.compile_mode == 'fused',
         }
@@ -159,15 +173,59 @@ def _wpe_stage(Obs_fdt, config: GssConfig, frame_mask):
         return Obs_fdt
     return wpe(Obs_fdt, taps=config.wpe_taps, delay=config.wpe_delay,
                iterations=config.wpe_iterations,
+               psd_context=config.wpe_psd_context,
                regularization=config.wpe_regularization,
-               frame_mask=frame_mask,
-               stats_backend=config.wpe_stats_backend)
+               chunk_size=config.wpe_chunk_size, frame_mask=frame_mask,
+               stats_backend=config.wpe_stats_backend,
+               solve_refine=config.wpe_solve_refine)
 
 
 def _em_stage(Obs_fdt, activity_freq, config: GssConfig, frame_mask):
     return cacgmm_posteriors(Obs_fdt.transpose(1, 2), activity_freq,
                              config=config.cacgmm_config,
                              frame_mask=frame_mask)            # (F, K, T)
+
+
+def _beamform(Obs_fdt, target_mask, distortion_mask, noise_mask,
+              config: GssConfig):
+    """Obs (F, D, T), masks (F, T) -> X_hat (F, T).  LCMV takes the
+    garbage class (``noise_mask``, the last class) as noise and the other
+    speakers as interference; 'ch2' / 'sum' bypass the masks.
+
+    GEV and LCMV compute their PSDs and vectors in float64 (the vector is
+    applied in the input's precision).  Their loads (1e-10 relative) are
+    below float32's resolution: where the EM leaves the noise class a
+    frame or two of mass, the equilibrated noise PSD reaches a condition
+    near 1e9 and a float32 vector is rounding noise; the JAX package's
+    float32 and float64 chains then differ by more than the peak
+    (``scripts_dev/diag_torch_scene_precision.py``)."""
+    kind = config.bf
+    if kind == 'ch2':
+        return Obs_fdt[:, 2, :]
+    if kind == 'sum':
+        return Obs_fdt.sum(dim=1)
+    Y = Obs_fdt
+    if kind in FLOAT64_BEAMFORMERS:
+        Y = Obs_fdt.to(torch.complex128)
+        target_mask, distortion_mask, noise_mask = (
+            m.to(torch.float64)
+            for m in (target_mask, distortion_mask, noise_mask))
+    cov_x = bf.psd_matrix(Y, target_mask)
+    if kind in ('lcmv', 'lcmv_ban'):
+        cov_i = bf.psd_matrix(Y, distortion_mask - noise_mask)
+        cov_n = bf.psd_matrix(Y, noise_mask)
+        w = bf.lcmv_vector(cov_x, cov_i, cov_n)
+        if kind == 'lcmv_ban':
+            w = bf.blind_analytic_normalization(w, cov_i + cov_n)
+        return bf.apply_beamforming_vector(w.to(Obs_fdt.dtype), Obs_fdt)
+    cov_n = bf.psd_matrix(Y, distortion_mask)
+    if kind in ('gev_ban', 'gev'):
+        w = bf.gev_vector(cov_x, cov_n)
+    else:
+        w = bf.mvdr_souden_vector(cov_x, cov_n, eps=1e-10)
+    if kind.endswith('_ban'):
+        w = bf.blind_analytic_normalization(w, cov_n)
+    return bf.apply_beamforming_vector(w.to(Obs_fdt.dtype), Obs_fdt)
 
 
 def _bf_stage(Obs_fdt, masks, target_index, config: GssConfig,
@@ -181,12 +239,8 @@ def _bf_stage(Obs_fdt, masks, target_index, config: GssConfig,
     masks = masks * keep.to(masks.dtype)
     target_mask = masks[:, target_index, :]                    # (F, T)
     distortion_mask = masks.sum(dim=1) - target_mask
-    cov_x = bf.psd_matrix(Obs_fdt, target_mask)
-    cov_n = bf.psd_matrix(Obs_fdt, distortion_mask)
-    w = bf.mvdr_souden_vector(cov_x, cov_n, eps=1e-10)
-    if config.bf == 'mvdrSouden_ban':
-        w = bf.blind_analytic_normalization(w, cov_n)
-    X_hat = bf.apply_beamforming_vector(w, Obs_fdt)            # (F, T)
+    X_hat = _beamform(Obs_fdt, target_mask, distortion_mask, masks[:, -1, :],
+                      config)
     if config.postfilter == 'mask_mul':
         X_hat = X_hat * target_mask.to(X_hat.dtype)
     return X_hat, masks

@@ -1,19 +1,23 @@
-"""Mask-based MVDR beamforming — port of the main-path subset of
+"""Mask-based beamforming — port of the beamformers of
 ``pb_chime5_tpu/ops/beamform.py``.
 
 Masked PSD matrices, MVDR in the Souden formulation with the SNR-optimal
-global reference channel, blind analytic normalization (BAN) and the
-beamformer apply.  Shapes: Y (F, D, T), masks (F, T), vectors (F, D),
-output (F, T).  The reference channel is picked with ``torch.argmax`` and
-plain indexing; the JAX one-hot reductions were a TPU-runtime workaround.
-GEV and LCMV are not ported yet (ROADMAP.md, Queue 1).
+global reference channel, GEV (the dominant generalized eigenvector of
+(Phi_X, Phi_N), by repeated squaring of Phi_N^{-1} Phi_X), LCMV with a
+target and an interference constraint, blind analytic normalization
+(BAN) and the beamformer apply.  Shapes: Y (F, D, T), masks (F, T),
+vectors (F, D), output (F, T).  The reference channel is picked with
+``torch.argmax`` and plain indexing; the JAX one-hot reductions were a
+TPU-runtime workaround.  The from-masks entry points and the mask
+estimators (``ops/masks.py``) are not ported yet (ROADMAP.md, Queue 1).
 """
 
 import torch
 
-from pb_chime5_tpu_torch.ops.linalg import hermitian_solve
+from pb_chime5_tpu_torch.ops.linalg import (
+    dominant_eigenvector, hermitian_solve, hermitize)
 
-__all__ = ['psd_matrix', 'mvdr_souden_vector',
+__all__ = ['psd_matrix', 'mvdr_souden_vector', 'gev_vector', 'lcmv_vector',
            'blind_analytic_normalization', 'apply_beamforming_vector']
 
 
@@ -49,6 +53,34 @@ def mvdr_souden_vector(cov_x, cov_n, *, eps=1e-10, return_ref_channel=False):
     if return_ref_channel:
         return w, ref_channel
     return w
+
+
+def gev_vector(cov_x, cov_n, *, eps_scale=1e-10):
+    """GEV / max-SNR beamformer: the dominant eigenvector of
+    ``Phi_N^{-1} Phi_X``, normalized to ``w^H Phi_N w = 1`` (the
+    generalized-eig convention), first channel's phase real-positive.
+    cov_x, cov_n (F, D, D) -> w (F, D)."""
+    phi = hermitian_solve(hermitize(cov_n), cov_x, relative_load=eps_scale)
+    w = dominant_eigenvector(phi)
+    nquad = torch.einsum('fd,fde,fe->f', w.conj(), cov_n, w).real
+    scale = 1.0 / torch.sqrt(torch.clamp_min(nquad,
+                                             torch.finfo(nquad.dtype).tiny))
+    return w * scale[..., None].to(w.dtype)
+
+
+def lcmv_vector(cov_x, cov_i, cov_n, *, eps=1e-10):
+    """LCMV: ``w = Phi_N^{-1} C (C^H Phi_N^{-1} C)^{-1} g``, g = [1, 0],
+    the columns of C the dominant eigenvectors of Phi_X and Phi_I (unit
+    response to the target, a null toward the interference).
+    cov_x, cov_i, cov_n (F, D, D) -> w (F, D)."""
+    C = torch.stack([dominant_eigenvector(hermitize(cov_x)),
+                     dominant_eigenvector(hermitize(cov_i))], dim=-1)
+    ninv_c = hermitian_solve(hermitize(cov_n), C, relative_load=eps)
+    gram = C.conj().transpose(-2, -1) @ ninv_c                  # (F, 2, 2)
+    g = torch.zeros(gram.shape[:-2] + (2, 1), dtype=gram.dtype,
+                    device=gram.device)
+    g[..., 0, 0] = 1.0
+    return (ninv_c @ hermitian_solve(hermitize(gram), g))[..., 0]
 
 
 def blind_analytic_normalization(w, cov_n):

@@ -11,7 +11,11 @@ floor (``inverse='auto'`` / ``'gauss_jordan'``) or, with
 ``inverse='pallas_gj'``, one launch of the batched Gauss-Jordan kernel
 (``ops/kernels/gj_inverse.py::hermitian_inverse_and_logdet_2d``, pivot
 floored at ``FLT_MIN``): the two floors differ, as they do in the JAX
-package.  Iteration structure (reference pb_chime5/core.py:180-202
+package.  The other JAX inverses are ported as the JAX ``_invert`` has
+them: ``'cholesky'`` (``cholesky_ex`` + triangular solve; a failed
+factorization gives NaN, as ``jnp.linalg.cholesky`` does), ``'schur'``
+(recursive Schur complements) and ``'eigh'`` (eigenvalues floored
+relative to the largest).  Iteration structure (reference pb_chime5/core.py:180-202
 with the pb_bss fit loop): one initialization-driven M-step, then
 ``iterations - 1`` masked (E, M) passes, then ``iterations_post - 1``
 unmasked ones, then a final E-step — masked when ``iterations_post ==
@@ -28,7 +32,8 @@ import dataclasses
 import torch
 
 from pb_chime5_tpu_torch.ops.linalg import (
-    hermitize, gauss_jordan_inverse_and_logdet)
+    _cholesky_or_nan, eye_like, gauss_jordan_inverse_and_logdet, hermitize,
+    schur_inverse_and_logdet)
 from pb_chime5_tpu_torch.ops.kernels.fused_em import fused_em_scatter
 from pb_chime5_tpu_torch.ops.kernels.gj_inverse import (
     hermitian_inverse_and_logdet_2d)
@@ -37,6 +42,7 @@ __all__ = ['CacgmmConfig', 'cacgmm_posteriors', 'make_initialization',
            'params_from_numpy', 'add_jitter']
 
 _INIT_FLOOR = 1e-10
+INVERSES = ('auto', 'gauss_jordan', 'pallas_gj', 'cholesky', 'schur', 'eigh')
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,17 +52,20 @@ class CacgmmConfig:
     iterations: int = 20
     iterations_post: int = 1
     # 'auto' == 'gauss_jordan': trace-scaled jitter + unpivoted GJ;
-    # 'pallas_gj': the same jitter + the batched GJ kernel
+    # 'pallas_gj': the same jitter + the batched GJ kernel; 'cholesky',
+    # 'schur': the same jitter + those inverses; 'eigh': floored
+    # eigendecomposition
     inverse: str = 'auto'
-    diagonal_floor: float = 1e-6
+    eigenvalue_floor: float = 1e-10  # 'eigh'
+    diagonal_floor: float = 1e-6     # every other inverse
     # the fused E+M kernel ('auto' and 'pallas' both name it here)
     em_backend: str = 'auto'
 
     def __post_init__(self):
-        if self.inverse not in ('auto', 'gauss_jordan', 'pallas_gj'):
+        if self.inverse not in INVERSES:
             raise NotImplementedError(
-                f'inverse={self.inverse!r} is not ported yet (ROADMAP.md, '
-                f'Queue 1); use "gauss_jordan" or "pallas_gj"')
+                f'inverse={self.inverse!r} is not an EM inverse of the JAX '
+                f'package; use one of {INVERSES}')
         if self.em_backend not in ('auto', 'pallas'):
             raise NotImplementedError(
                 f'em_backend={self.em_backend!r}: only the fused E+M kernel '
@@ -104,12 +113,36 @@ def add_jitter(cov, diagonal_floor):
 
 
 def _invert(cov, config: CacgmmConfig):
-    """Hermitian (..., D, D) -> (precision, logdet): trace-scaled
-    diagonal jitter, then the unpivoted Gauss-Jordan inverse (the kernel
-    for ``inverse='pallas_gj'``)."""
+    """Hermitian (..., D, D) -> (precision, logdet): the JAX ``_invert``
+    of the fused-kernel driver.  Every inverse but ``'eigh'`` first adds
+    the trace-scaled diagonal jitter (clamped at ``tiny``)."""
+    tiny = torch.finfo(cov.real.dtype).tiny
+    if config.inverse == 'eigh':
+        # a non-finite covariance gives NaN, as jnp.linalg.eigh does
+        # (torch.linalg.eigh raises on it)
+        finite = torch.isfinite(cov).all(dim=-1).all(dim=-1)[..., None]
+        ew, ev = torch.linalg.eigh(
+            torch.where(finite[..., None], cov, eye_like(cov)))
+        ew = torch.where(finite, ew, float('nan'))
+        ev = torch.where(finite[..., None], ev, float('nan'))
+        floor = ew.amax(dim=-1, keepdim=True) * config.eigenvalue_floor
+        # the second clamp keeps an all-zero covariance finite
+        ew = torch.clamp_min(torch.maximum(ew, floor), tiny)
+        precision = (ev * (1.0 / ew)[..., None, :].to(ev.dtype)) \
+            @ ev.conj().transpose(-2, -1)
+        return precision, torch.log(ew).sum(dim=-1)
     cov = add_jitter(cov, config.diagonal_floor)
     if config.inverse == 'pallas_gj':
         return hermitian_inverse_and_logdet_2d(cov)
+    if config.inverse == 'schur':
+        return schur_inverse_and_logdet(cov)
+    if config.inverse == 'cholesky':
+        L = _cholesky_or_nan(cov)
+        Linv = torch.linalg.solve_triangular(L, eye_like(cov), upper=False)
+        precision = Linv.conj().transpose(-2, -1) @ Linv
+        diag = torch.diagonal(L, dim1=-2, dim2=-1).real
+        return precision, 2.0 * torch.log(
+            torch.clamp_min(diag, tiny)).sum(dim=-1)
     return gauss_jordan_inverse_and_logdet(cov)
 
 

@@ -1,27 +1,44 @@
-"""Batched linear algebra — port of the main-path subset of
-``pb_chime5_tpu/ops/linalg.py``.
+"""Batched linear algebra — port of ``pb_chime5_tpu/ops/linalg.py``.
 
 * :func:`gauss_jordan_inverse_and_logdet` mirrors the JAX unpivoted
   Gauss-Jordan with its relative pivot floor step for step: it is the EM
   inverse (``bss_inverse='gauss_jordan'``) and the ``d <= 32`` branch of
   :func:`hermitian_solve` (the MVDR solve, D = 24).
-* :func:`hermitian_solve` keeps the JAX equilibration, scale floor and
-  diagonal load.  Above ``d = 32`` (the WPE filter solve, d = taps * D =
-  240) it factors with ``torch.linalg.cholesky_ex`` + ``cholesky_solve``
-  in place of the JAX blocked-Cholesky panels, which exist only because
-  the TPU runtime had no LAPACK-style calls.  A failed factorization
-  raises.
+* :func:`block_gauss_jordan_inverse_and_logdet` and
+  :func:`schur_inverse_and_logdet` are the JAX blocked Gauss-Jordan and
+  recursive Schur-complement inverses, operation for operation.
+* :func:`hermitian_solve` keeps the JAX equilibration, scale floor,
+  diagonal load, ``method`` choices and iterative refinement.  Its
+  ``'chol'`` method (the default above ``d = 32``: the WPE filter solve,
+  d = taps * D = 240) factors with ``torch.linalg.cholesky_ex`` +
+  ``cholesky_solve`` in place of the JAX blocked-Cholesky panels, which
+  exist only because the TPU runtime had no LAPACK-style calls; a failed
+  factorization raises (the JAX panels floor the pivot at ``eps^2 *
+  max(diag)`` instead: ROADMAP.md, Queue 3).  The hand-written Cholesky
+  kernel of the same solve is ``ops/kernels/chol_solve.py``.
+* :func:`dominant_eigenvector` is the JAX repeated squaring, with the
+  largest column picked by indexing (the one-hot reduction was a TPU
+  workaround); :func:`stable_cholesky` returns NaN where the
+  factorization fails, as ``jnp.linalg.cholesky`` does.
 """
 
 import torch
 
-__all__ = ['hermitize', 'stable_solve', 'gauss_jordan_inverse_and_logdet',
-           'hermitian_solve']
+__all__ = ['hermitize', 'eye_like', 'stable_solve', 'stable_cholesky',
+           'gauss_jordan_inverse_and_logdet',
+           'block_gauss_jordan_inverse_and_logdet', 'schur_inverse_and_logdet',
+           'equilibrate', 'hermitian_solve', 'dominant_eigenvector']
 
 
 def hermitize(mat):
     """Force Hermitian symmetry: ``(A + A^H) / 2``."""
     return 0.5 * (mat + mat.transpose(-2, -1).conj())
+
+
+def eye_like(mat):
+    """The identity broadcast to ``mat``'s shape, dtype and device."""
+    d = mat.shape[-1]
+    return torch.eye(d, dtype=mat.dtype, device=mat.device).expand(mat.shape)
 
 
 def stable_solve(A, B):
@@ -32,6 +49,25 @@ def stable_solve(A, B):
     pinv = torch.linalg.pinv(A) @ B
     bad = (info != 0) | ~torch.isfinite(direct).all(dim=-1).all(dim=-1)
     return torch.where(bad[..., None, None], pinv, direct)
+
+
+def _cholesky_or_nan(A):
+    """Lower Cholesky factor; where the factorization fails, a lower
+    triangle of NaN (what ``jnp.linalg.cholesky`` returns)."""
+    L, info = torch.linalg.cholesky_ex(A)
+    nan = torch.full_like(L, float('nan')).tril()
+    return torch.where((info != 0)[..., None, None], nan, L)
+
+
+def stable_cholesky(mat, *, eps_scale=1e-6):
+    """Cholesky of a Hermitian PSD matrix with trace-scaled diagonal
+    jitter ``eps_scale * trace(mat) / D`` (scale floored at ``tiny``)."""
+    d = mat.shape[-1]
+    tr = torch.diagonal(mat, dim1=-2, dim2=-1).sum(-1).real
+    scale = torch.clamp_min(tr / d, torch.finfo(tr.dtype).tiny)
+    jitter = (eps_scale * scale)[..., None, None].to(mat.dtype) \
+        * eye_like(mat)
+    return _cholesky_or_nan(hermitize(mat) + jitter)
 
 
 def gauss_jordan_inverse_and_logdet(M):
@@ -69,12 +105,91 @@ def gauss_jordan_inverse_and_logdet(M):
     return A, logdet
 
 
-def hermitian_solve(A, B, *, relative_load=None):
-    """Solve ``A X = B`` for Hermitian (PSD) ``A``: equilibrate to unit
-    diagonal, add ``relative_load`` (default ``64 * eps``) on that
-    diagonal, solve, undo the scaling.
+def block_gauss_jordan_inverse_and_logdet(M, *, block=32):
+    """Blocked unpivoted Gauss-Jordan inverse + log|M|: the elimination
+    order of :func:`gauss_jordan_inverse_and_logdet` in ``d / block``
+    pivot steps, each pivot block inverted by the scalar version and
+    applied by matrix products.  A ``d`` that is not a multiple of
+    ``block`` is extended by an identity block (inverse extended alike,
+    logdet unchanged)."""
+    d = M.shape[-1]
+    pad = (-d) % block
+    A = M
+    if pad:
+        A = torch.zeros(M.shape[:-2] + (d + pad, d + pad), dtype=M.dtype,
+                        device=M.device)
+        A[..., :d, :d] = M
+        A[..., d:, d:] = torch.eye(pad, dtype=M.dtype, device=M.device)
+    logdet = torch.zeros(M.shape[:-2], dtype=M.real.dtype, device=M.device)
+    for lo in range(0, d + pad, block):
+        hi = lo + block
+        inv_piv, ld = gauss_jordan_inverse_and_logdet(A[..., lo:hi, lo:hi])
+        logdet = logdet + ld
+        col = A[..., :, lo:hi]
+        rown = inv_piv @ A[..., lo:hi, :]
+        # the rank-block update zeroes block row and column j exactly; the
+        # fixups then write the inverse's blocks
+        colfix = -(col @ inv_piv)
+        colfix[..., lo:hi, :] = 0
+        A = A - col @ rown
+        rowfix = rown.clone()
+        rowfix[..., :, lo:hi] = inv_piv
+        A[..., lo:hi, :] = rowfix
+        A[..., :, lo:hi] += colfix
+    return A[..., :d, :d], logdet
 
-    A (..., d, d), B (..., d, e) -> X (..., d, e).
+
+def schur_inverse_and_logdet(M):
+    """Batched Hermitian-PD inverse + log|M| by recursive 2 x 2-block
+    Schur complements, bottoming out at closed-form 1 x 1 / 2 x 2
+    inverses (the 2 x 2 determinant floored at ``8 eps a c``).  No
+    pivoting: the caller ensures positive definiteness.
+
+    M (..., d, d) complex -> (inverse (..., d, d), logdet (...,) real)."""
+    d = M.shape[-1]
+    finfo = torch.finfo(M.real.dtype)
+    if d == 1:
+        safe = torch.clamp_min(M[..., 0, 0].real, finfo.tiny)
+        return (1.0 / safe).to(M.dtype)[..., None, None], torch.log(safe)
+    if d == 2:
+        a = M[..., 0, 0].real
+        c = M[..., 1, 1].real
+        b = M[..., 0, 1]
+        floor = torch.clamp_min(8 * finfo.eps * a * c, finfo.tiny)
+        det = torch.maximum(a * c - (b * b.conj()).real, floor)
+        inv_det = (1.0 / det).to(M.dtype)
+        inv = torch.stack([
+            torch.stack([c.to(M.dtype), -b], dim=-1),
+            torch.stack([-b.conj(), a.to(M.dtype)], dim=-1),
+        ], dim=-2) * inv_det[..., None, None]
+        return inv, torch.log(det)
+    h = d // 2
+    A = M[..., :h, :h]
+    B = M[..., :h, h:]
+    Ai, logdet_a = schur_inverse_and_logdet(A)
+    AiB = Ai @ B
+    S = hermitize(M[..., h:, h:] - B.conj().transpose(-2, -1) @ AiB)
+    Si, logdet_s = schur_inverse_and_logdet(S)
+    AiB_Si = AiB @ Si
+    top_left = Ai + AiB_Si @ AiB.conj().transpose(-2, -1)
+    top_right = -AiB_Si
+    inv = torch.cat([
+        torch.cat([top_left, top_right], dim=-1),
+        torch.cat([top_right.conj().transpose(-2, -1), Si], dim=-1),
+    ], dim=-2)
+    return hermitize(inv), logdet_a + logdet_s
+
+
+def equilibrate(A, B, relative_load=None):
+    """The conditioning of :func:`hermitian_solve` and of the K5 wrapper
+    (``ops/kernels/chol_solve.py``): ``A`` scaled to unit diagonal (the
+    scales floored at ``eps * max(diag)``; an all-zero matrix is not
+    scaled) and hermitized, ``relative_load`` (default ``64 * eps``) added
+    on that diagonal, ``B``'s rows scaled alike.
+
+    A (..., d, d), B (..., d, e) -> (As0 unloaded, As loaded, Bs,
+    sinv (..., d) of A's dtype); the solution of ``A X = B`` is
+    ``sinv[..., :, None] * Xs`` where ``As Xs = Bs``.
     """
     d = A.shape[-1]
     finfo = torch.finfo(A.real.dtype)
@@ -89,18 +204,86 @@ def hermitian_solve(A, B, *, relative_load=None):
                         torch.ones_like(maxdiag))
     s = torch.sqrt(torch.maximum(diag, floor))
     sinv = (1.0 / s).to(A.dtype)
-    As = hermitize(A * sinv[..., :, None] * sinv[..., None, :])
-    As = As + relative_load * torch.eye(d, dtype=A.dtype, device=A.device)
-    Bs = sinv[..., :, None] * B
-    if d <= 32:
-        inv, _ = gauss_jordan_inverse_and_logdet(As)
-        X = inv @ Bs
-    else:
+    As0 = hermitize(A * sinv[..., :, None] * sinv[..., None, :])
+    As = As0 + relative_load * torch.eye(d, dtype=A.dtype, device=A.device)
+    return As0, As, sinv[..., :, None] * B, sinv
+
+
+def hermitian_solve(A, B, *, relative_load=None, method=None,
+                    refine: int = 0):
+    """Solve ``A X = B`` for Hermitian (PSD) ``A``: equilibrate to unit
+    diagonal, add ``relative_load`` (default ``64 * eps``) on that
+    diagonal, solve, undo the scaling.
+
+    ``method``: ``None`` ('gj' for ``d <= 32``, else 'chol'), 'gj' (the
+    Gauss-Jordan inverse), 'block_gj', 'schur' (explicit inverses) or
+    'chol' (cuSOLVER / LAPACK Cholesky; raises where it fails).
+    ``refine > 0`` runs that many iterative-refinement steps: the residual
+    against the UNLOADED equilibrated matrix, corrected through the
+    factorization (or inverse) of the loaded one.
+
+    A (..., d, d), B (..., d, e) -> X (..., d, e).
+    """
+    d = A.shape[-1]
+    if method is None:
+        method = 'gj' if d <= 32 else 'chol'
+    if method not in ('gj', 'block_gj', 'schur', 'chol'):
+        raise ValueError(f'unknown method {method!r}')
+    As0, As, Bs, sinv = equilibrate(A, B, relative_load)
+    if method == 'chol':
         L, info = torch.linalg.cholesky_ex(As)
         bad = int((info != 0).sum())
         if bad:
             raise torch.linalg.LinAlgError(
                 f'hermitian_solve: Cholesky failed on {bad} of '
                 f'{info.numel()} loaded, equilibrated matrices')
-        X = torch.cholesky_solve(Bs, L)
+
+        def apply_inv(rhs):
+            return torch.cholesky_solve(rhs, L)
+    else:
+        inverse = {'gj': gauss_jordan_inverse_and_logdet,
+                   'block_gj': block_gauss_jordan_inverse_and_logdet,
+                   'schur': schur_inverse_and_logdet}[method]
+        inv, _ = inverse(As)
+
+        def apply_inv(rhs):
+            return inv @ rhs
+    X = apply_inv(Bs)
+    for _ in range(refine):
+        X = X + apply_inv(Bs - As0 @ X)
     return sinv[..., :, None] * X
+
+
+def dominant_eigenvector(M, *, squarings=14, power_steps=2):
+    """Dominant eigenvector of a batched matrix with a real non-negative
+    spectrum (Hermitian PSD, or ``N^{-1} Phi`` of two HPSDs) by repeated
+    squaring: ``squarings`` max-normalized squarings, the largest column,
+    then ``1 + power_steps`` power steps.  Unit 2-norm, the first
+    component's phase rotated real-positive (sign for real input).
+
+    M (..., D, D) -> (..., D).
+    """
+    tiny = torch.finfo(M.real.dtype).tiny
+
+    def renorm(A):
+        scale = A.abs().amax(dim=(-2, -1), keepdim=True)
+        return A / torch.clamp_min(scale, tiny).to(A.dtype)
+
+    P = renorm(M)
+    for _ in range(squarings):
+        P = renorm(P @ P)
+    pick = torch.linalg.vector_norm(P, dim=-2).argmax(dim=-1)
+    v = torch.take_along_dim(P, pick[..., None, None], dim=-1)[..., 0]
+
+    def power(v):
+        v = (M @ v[..., None])[..., 0]
+        n = torch.linalg.vector_norm(v, dim=-1, keepdim=True)
+        return v / torch.clamp_min(n, tiny).to(v.dtype)
+
+    for _ in range(1 + power_steps):
+        v = power(v)
+    if v.is_complex():
+        return v * torch.exp(-1j * torch.angle(v[..., :1])).to(v.dtype)
+    return v * torch.sign(torch.where(v[..., :1] == 0,
+                                      torch.ones_like(v[..., :1]),
+                                      v[..., :1]))

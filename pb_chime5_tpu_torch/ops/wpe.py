@@ -1,10 +1,12 @@
-"""Weighted prediction error (WPE) dereverberation — port of the main
-path of ``pb_chime5_tpu/ops/wpe.py``.
+"""Weighted prediction error (WPE) dereverberation — port of
+``pb_chime5_tpu/ops/wpe.py``.
 
 Iterative offline WPE batched over frequency:
 
-* power ``lambda_t = mean_d |X_dt|^2`` (frame-masked), floored at
-  ``1e-10 * max_t lambda``,
+* power ``lambda_t = mean_d |X_dt|^2``, optionally averaged over a
+  +-``psd_context`` frame window (a zero-padded box sum divided by the
+  number of frames the window holds, so the edge frames average fewer),
+  then frame-masked and floored at ``1e-10 * max_t lambda``,
 * stacked delayed observations ``Ytilde`` (F, taps * D, T),
 * statistics ``R = hermitize((Ytilde w) Ytilde^H)``,
   ``P = (Ytilde w) Y^H``: by default (``stats_backend='auto'`` or
@@ -15,15 +17,24 @@ Iterative offline WPE batched over frequency:
   (:func:`~pb_chime5_tpu_torch.ops.kernels.wpe_stats.wpe_statistics`),
   then hermitized, as the JAX ``'pallas'`` backend does,
 * filter ``G = R^{-1} P`` by the equilibrated, diagonally loaded
-  :func:`~pb_chime5_tpu_torch.ops.linalg.hermitian_solve`,
+  :func:`~pb_chime5_tpu_torch.ops.linalg.hermitian_solve`, with
+  ``solve_refine`` iterative-refinement steps against the unloaded R,
 * output ``X = Y - G^H Ytilde``.
 
-The JAX main path computes the same statistics in a real-form tap-group
+``chunk_size`` accumulates R and P over T-chunks of that many frames and
+applies the filter chunk by chunk, so the (F, taps * D, T) stack is never
+materialized.  The chunked statistics are the complex matmuls for every
+``stats_backend``: with 'pallas' the statistics kernel is not launched,
+as the JAX package runs its XLA chunked statistics there; with 'auto'
+the JAX package uses its real-form chunked staircase, the same sums in
+another order.
+
+The JAX main path computes the statistics in a real-form tap-group
 staircase (``_real_form_stats``, ``stats_backend='real'``), a TPU
-lane-padding layout that is not carried over: ``'real'`` raises.  Other
-options outside the main path (``psd_context > 0``, ``chunk_size``,
-reduced precision, iterative refinement) are not ported yet (ROADMAP.md,
-Queue 1): ``GssConfig`` rejects them.
+lane-padding layout that is not carried over: ``'real'`` raises.  The
+JAX ``precision`` argument (bf16 passes of the TPU's MXU) has no
+counterpart: the port computes in IEEE float32, and ``GssConfig``
+rejects ``wpe_precision`` other than 'highest'.
 """
 
 import torch
@@ -50,9 +61,19 @@ def build_y_tilde(Y, taps: int, delay: int):
     return torch.cat(parts, dim=-2)
 
 
-def get_power_inverse(X, frame_mask=None):
-    """``1 / max(lambda, 1e-10 * max(lambda))``.  X (..., D, T) -> (..., T)."""
+def get_power_inverse(X, psd_context: int = 0, frame_mask=None):
+    """``1 / max(lambda, 1e-10 * max(lambda))`` with lambda averaged over
+    +-``psd_context`` frames.  X (..., D, T) -> (..., T)."""
     power = (X.abs() ** 2).mean(dim=-2)
+    if psd_context > 0:
+        T = power.shape[-1]
+        width = 2 * psd_context + 1
+        padded = torch.nn.functional.pad(power, (psd_context, psd_context))
+        t = torch.arange(T, device=power.device)
+        counts = (torch.clamp_max(t + psd_context, T - 1)
+                  - torch.clamp_min(t - psd_context, 0) + 1)
+        power = padded.unfold(-1, width, 1).sum(dim=-1) / counts.to(
+            power.dtype)
     if frame_mask is not None:
         power = power * frame_mask.to(power.dtype)
     floor = torch.clamp_min(1e-10 * power.amax(dim=-1, keepdim=True),
@@ -60,47 +81,98 @@ def get_power_inverse(X, frame_mask=None):
     return 1.0 / torch.maximum(power, floor)
 
 
-def _solve_G(R, P, regularization):
+def _solve_G(R, P, regularization, refine=0):
     if regularization:
-        return hermitian_solve(R, P, relative_load=regularization)
+        return hermitian_solve(R, P, relative_load=regularization,
+                               refine=refine)
     return stable_solve(R, P)
 
 
-def _wpe_iteration(Y, Y_tilde, inv_power, regularization, stats_backend):
+def _wpe_iteration(Y, Y_tilde, inv_power, regularization, stats_backend,
+                   solve_refine=0):
     """One filter update.  Y (F, D, T), Y_tilde (F, taps*D, T),
     inv_power (F, T) -> X (F, D, T)."""
     stats = (wpe_statistics if stats_backend == 'pallas'
              else wpe_statistics_reference)
     R, P = stats(Y_tilde, Y, inv_power)
-    G = _solve_G(hermitize(R), P, regularization)
+    G = _solve_G(hermitize(R), P, regularization, solve_refine)
     return Y - G.conj().transpose(-2, -1) @ Y_tilde
 
 
+def _chunked_wpe_iteration(Y, inv_power, taps, delay, regularization,
+                           chunk_size, frame_mask, solve_refine=0):
+    """One filter update with R, P accumulated over T-chunks and the
+    filter applied per chunk; the peak scratch is one (F, taps*D, chunk)
+    block."""
+    F, D, T = Y.shape
+    hist = delay + taps - 1
+    num_chunks = -(-T // chunk_size)
+    pad = num_chunks * chunk_size - T
+    Yp = torch.nn.functional.pad(Y, (hist, pad))
+    wp = torch.nn.functional.pad(inv_power, (0, pad))
+    fmp = (None if frame_mask is None else torch.nn.functional.pad(
+        frame_mask.to(inv_power.dtype), (0, pad)))
+
+    def chunk_tilde(start):
+        """(F, taps*D, chunk) stacked delayed block from frame ``start``."""
+        yt = torch.cat([Yp[..., start + hist - delay - tau:
+                           start + hist - delay - tau + chunk_size]
+                        for tau in range(taps)], dim=-2)
+        if fmp is not None:
+            yt = yt * fmp[start:start + chunk_size].to(yt.dtype)
+        return yt
+
+    dim = taps * D
+    R = torch.zeros((F, dim, dim), dtype=Y.dtype, device=Y.device)
+    P = torch.zeros((F, dim, D), dtype=Y.dtype, device=Y.device)
+    for start in range(0, T + pad, chunk_size):
+        yt = chunk_tilde(start)
+        yc = Yp[..., start + hist:start + hist + chunk_size]
+        weighted = yt * wp[:, None, start:start + chunk_size].to(yt.dtype)
+        R = R + weighted @ yt.conj().transpose(-2, -1)
+        P = P + weighted @ yc.conj().transpose(-2, -1)
+    G = _solve_G(hermitize(R), P, regularization, solve_refine)
+    Gh = G.conj().transpose(-2, -1)
+    tail = torch.cat([Gh @ chunk_tilde(start)
+                      for start in range(0, T + pad, chunk_size)], dim=-1)
+    return Y - tail[..., :T]
+
+
 def wpe(Y, *, taps: int = 10, delay: int = 2, iterations: int = 3,
-        regularization: float = 1e-4, frame_mask=None,
-        stats_backend: str = 'auto'):
+        psd_context: int = 0, regularization: float = 1e-4,
+        chunk_size: int = None, frame_mask=None,
+        stats_backend: str = 'auto', solve_refine: int = 0):
     """Batched offline WPE.  Y (F, D, T) complex -> dereverberated
     (F, D, T); ``regularization=0`` solves with :func:`stable_solve`
     (reference-exact in float64); ``frame_mask`` (T,) bool excludes padded
     frames from the statistics and zeroes them in the output.
     ``stats_backend``: 'auto' / 'xla' (complex matmuls) or 'pallas' (the
-    statistics kernel; complex64 only); 'real' is not ported."""
+    statistics kernel; complex64 only; not with ``chunk_size``); 'real'
+    is not ported.  ``solve_refine`` iterative-refinement steps on the
+    filter solve (see ``linalg.hermitian_solve``)."""
     if stats_backend == 'real':
         raise NotImplementedError(
             "stats_backend='real' (the TPU tap-group staircase) is not "
             "ported; 'auto' computes the same statistics")
     if stats_backend not in ('auto', 'xla', 'pallas'):
         raise ValueError(f'unknown stats_backend {stats_backend!r}')
-    if stats_backend == 'pallas':
-        Y = Y.contiguous()          # the kernel reads (F, D, T) rows
-    Y_tilde = build_y_tilde(Y, taps, delay)
-    if frame_mask is not None:
-        Y_tilde = Y_tilde * frame_mask.to(Y_tilde.dtype)
-    X = Y
-    for _ in range(iterations):
-        inv_power = get_power_inverse(X, frame_mask)
-        X = _wpe_iteration(Y, Y_tilde, inv_power, regularization,
-                           stats_backend)
+    if chunk_size is not None:
+        X = Y
+        for _ in range(iterations):
+            X = _chunked_wpe_iteration(
+                Y, get_power_inverse(X, psd_context, frame_mask), taps,
+                delay, regularization, chunk_size, frame_mask, solve_refine)
+    else:
+        if stats_backend == 'pallas':
+            Y = Y.contiguous()          # the kernel reads (F, D, T) rows
+        Y_tilde = build_y_tilde(Y, taps, delay)
+        if frame_mask is not None:
+            Y_tilde = Y_tilde * frame_mask.to(Y_tilde.dtype)
+        X = Y
+        for _ in range(iterations):
+            X = _wpe_iteration(Y, Y_tilde,
+                               get_power_inverse(X, psd_context, frame_mask),
+                               regularization, stats_backend, solve_refine)
     if frame_mask is not None:
         X = X * frame_mask.to(X.dtype)
     return X

@@ -80,3 +80,53 @@ def test_silent_mask_stays_finite(rng):
     w = tbf.blind_analytic_normalization(
         tbf.mvdr_souden_vector(cov_x, cov_n), cov_n)
     assert torch.isfinite(w).all()
+
+
+def _covs(Y, *masks):
+    return [tbf.psd_matrix(torch.from_numpy(Y), torch.from_numpy(m))
+            for m in masks], [jbf.psd_matrix(jnp.asarray(Y), jnp.asarray(m))
+                              for m in masks]
+
+
+@pytest.mark.parametrize('dtype,tol', [(np.complex128, 1e-8),
+                                       (np.complex64, 1e-3)])
+def test_gev_matches_jax_and_scipy(rng, dtype, tol):
+    """GEV against the JAX function (complex128 1e-8, as
+    ``tests/test_linalg_device.py`` pins the eigenvector; complex64 1e-3
+    of the largest coefficient, as for MVDR above) and against SciPy's
+    generalized eigenvector at the 1e-6 ``tests/test_beamform.py`` pins."""
+    Y, x_mask, n_mask, *_ = _scene(rng)
+    Y = Y.astype(dtype)
+    (cx, cn), (cxj, cnj) = _covs(Y, x_mask, n_mask)
+    w = tbf.gev_vector(cx, cn).numpy()
+    wj = np.asarray(jbf.gev_vector(cxj, cnj))
+    np.testing.assert_allclose(w, wj, atol=tol * np.abs(wj).max())
+    if dtype == np.complex128:
+        np.testing.assert_allclose(
+            w, ref.gev_np(cx.numpy(), cn.numpy()), atol=1e-6)
+    w_ban = tbf.blind_analytic_normalization(torch.from_numpy(w), cn)
+    wj_ban = np.asarray(jbf.blind_analytic_normalization(wj, cnj))
+    np.testing.assert_allclose(w_ban.numpy(), wj_ban,
+                               atol=tol * np.abs(wj_ban).max())
+
+
+@pytest.mark.parametrize('dtype,tol', [(np.complex128, 1e-8),
+                                       (np.complex64, 1e-3)])
+def test_lcmv_matches_jax_and_nulls_interference(rng, dtype, tol):
+    """LCMV against the JAX function; unit response toward the target's
+    dominant eigenvector, a null toward the interference's."""
+    Y, x_mask, n_mask, *_ = _scene(rng)
+    Y = Y.astype(dtype)
+    noise = 0 * n_mask + 0.05
+    (cx, ci, cn), (cxj, cij, cnj) = _covs(Y, x_mask, n_mask, noise)
+    w = tbf.lcmv_vector(cx, ci, cn)
+    wj = np.asarray(jbf.lcmv_vector(cxj, cij, cnj))
+    np.testing.assert_allclose(w.numpy(), wj, atol=tol * np.abs(wj).max())
+    if dtype == np.complex128:
+        from pb_chime5_tpu_torch.ops.linalg import dominant_eigenvector
+        a_x = dominant_eigenvector(cx)
+        a_i = dominant_eigenvector(ci)
+        resp_x = torch.einsum('fd,fd->f', w.conj(), a_x)
+        resp_i = torch.einsum('fd,fd->f', w.conj(), a_i)
+        np.testing.assert_allclose(resp_x.numpy(), 1.0, atol=1e-8)
+        np.testing.assert_allclose(resp_i.numpy(), 0.0, atol=1e-8)

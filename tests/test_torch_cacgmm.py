@@ -204,7 +204,7 @@ def test_empty_activity_class_stays_finite(rng):
 
 
 def test_config_rejects_unported_options():
-    for kw in (dict(inverse='eigh'), dict(inverse='cholesky'),
+    for kw in (dict(inverse='lu'), dict(inverse='xla'),
                dict(em_backend='xla')):
         with pytest.raises(NotImplementedError):
             cacgmm.CacgmmConfig(**kw)
@@ -216,3 +216,106 @@ def test_make_initialization_matches_jax(rng):
     np.testing.assert_allclose(
         cacgmm.make_initialization(torch.from_numpy(act)).numpy(),
         np.asarray(make_initialization(jnp.asarray(act))), rtol=1e-7)
+
+
+# --- the EM inverses 'cholesky', 'schur' and 'eigh' ---
+
+INVERSES = ['gauss_jordan', 'cholesky', 'schur', 'eigh']
+
+
+def _covariances(rng, F=6, K=3, D=8):
+    """EM-like trace-normalized covariances: full rank, rank-deficient
+    (only the jitter makes it invertible) and an empty class (B = I)."""
+    Z = (rng.standard_normal((F, K, D, 3 * D))
+         + 1j * rng.standard_normal((F, K, D, 3 * D)))
+    Z[:, 1, :, D // 2:] = 0
+    S = Z @ Z.conj().swapaxes(-1, -2)
+    S[:, 2] = 0
+    return np.asarray(cacgmm._trace_normalize(cacgmm.hermitize(
+        torch.from_numpy(S.astype(np.complex64)))))
+
+
+@pytest.mark.parametrize('inverse', INVERSES)
+@pytest.mark.parametrize('dtype,tol', [(np.complex128, 1e-5),
+                                       (np.complex64, 1e-4)])
+def test_invert_matches_jax(rng, inverse, dtype, tol):
+    """Each ``_invert`` mode against the JAX ``_invert`` on the same
+    covariances: precision within ``tol`` of its largest entry, logdet
+    within ``tol`` of the largest |logdet|.  complex128 holds every class
+    (the rank-deficient one has condition ~1e6 after the jitter, ~1e10
+    under 'eigh''s relative eigenvalue floor: 1e-5); complex64 the
+    full-rank and the empty class (float32 on the rank-deficient class
+    sits 5e-2 to 1 from float64 in both packages alike)."""
+    from pb_chime5_tpu.ops.cacgmm import _invert as jax_invert
+    cov = _covariances(rng).astype(dtype)
+    if dtype == np.complex64:
+        cov = cov[:, [0, 2]]
+    cfg = cacgmm.CacgmmConfig(inverse=inverse)
+    prec, ld = cacgmm._invert(torch.from_numpy(cov), cfg)
+    prec_j, ld_j = jax_invert(jnp.asarray(cov), JaxCacgmmConfig(
+        inverse=inverse), batched=True)
+    prec_j, ld_j = np.asarray(prec_j), np.asarray(ld_j)
+    assert prec.dtype == torch.from_numpy(cov).dtype
+    scale = np.abs(prec_j).max(axis=(-2, -1), keepdims=True)
+    np.testing.assert_allclose(prec.numpy() / scale, prec_j / scale,
+                               atol=tol)
+    np.testing.assert_allclose(ld.numpy(), ld_j,
+                               atol=tol * np.abs(ld_j).max())
+    assert torch.isfinite(prec).all() and torch.isfinite(ld).all()
+
+
+def test_cholesky_inverse_gives_nan_where_the_factorization_fails():
+    """Not positive definite after the jitter: NaN, as the JAX inverse
+    gives (``jnp.linalg.cholesky``), not an exception."""
+    from pb_chime5_tpu.ops.cacgmm import _invert as jax_invert
+    cov = np.broadcast_to(np.eye(4), (2, 4, 4)).astype(np.complex64).copy()
+    cov[1, 2, 2] = -1
+    cfg = cacgmm.CacgmmConfig(inverse='cholesky')
+    prec, ld = cacgmm._invert(torch.from_numpy(cov), cfg)
+    prec_j, ld_j = jax_invert(jnp.asarray(cov), JaxCacgmmConfig(
+        inverse='cholesky'), batched=True)
+    np.testing.assert_array_equal(torch.isnan(prec).numpy(),
+                                  np.isnan(np.asarray(prec_j)))
+    np.testing.assert_array_equal(torch.isnan(ld).numpy(),
+                                  np.isnan(np.asarray(ld_j)))
+    assert torch.isfinite(prec[0]).all() and torch.isnan(ld[1])
+
+
+@pytest.mark.parametrize('inverse', INVERSES)
+def test_short_em_per_inverse_matches_jax(rng, inverse):
+    """2 + 0 EM iterations per inverse against the JAX fused-kernel EM
+    with the same inverse, under the 3e-2 that PARITY.md's stress leg
+    holds the 2 + 0 EM to."""
+    Y, act = _problem(rng, F=8, T=200, D=6)
+    fm = np.arange(200) < 180
+    want = np.asarray(jax_posteriors(
+        jnp.asarray(Y), jnp.asarray(act),
+        config=JaxCacgmmConfig(iterations=2, iterations_post=0,
+                               em_backend='pallas', inverse=inverse),
+        frame_mask=jnp.asarray(fm)))
+    got = cacgmm.cacgmm_posteriors(
+        torch.from_numpy(Y), torch.from_numpy(act),
+        config=cacgmm.CacgmmConfig(iterations=2, iterations_post=0,
+                                   inverse=inverse),
+        frame_mask=torch.from_numpy(fm)).numpy()
+    assert np.isfinite(got).all()
+    assert np.abs(got - want).max() < 3e-2, np.abs(got - want).max()
+
+
+def test_eigh_inverse_gives_nan_for_a_non_finite_covariance(rng):
+    """A non-finite covariance (an EM that blew up in one bin) gives NaN
+    in that bin and leaves the rest alone, as ``jnp.linalg.eigh`` does;
+    ``torch.linalg.eigh`` alone would raise for the whole batch."""
+    from pb_chime5_tpu.ops.cacgmm import _invert as jax_invert
+    cov = _covariances(rng)
+    cov[1, 2, 0, 0] = np.inf
+    cfg = cacgmm.CacgmmConfig(inverse='eigh')
+    prec, ld = cacgmm._invert(torch.from_numpy(cov), cfg)
+    prec_j, ld_j = jax_invert(jnp.asarray(cov), JaxCacgmmConfig(
+        inverse='eigh'), batched=True)
+    np.testing.assert_array_equal(torch.isnan(ld).numpy(),
+                                  np.isnan(np.asarray(ld_j)))
+    assert torch.isnan(prec[1, 2]).all() and torch.isnan(ld[1, 2])
+    ok = torch.ones(ld.shape, dtype=torch.bool)
+    ok[1, 2] = False
+    assert torch.isfinite(prec[ok]).all() and torch.isfinite(ld[ok]).all()

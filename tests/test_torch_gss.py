@@ -63,8 +63,8 @@ def test_config_carries_over_from_jax(jax_config):
 @pytest.mark.parametrize('field,value', [
     ('wpe_stats_backend', 'real'), ('wpe_precision', 'high'),
     ('compile_mode', 'fast_start'), ('bss_em_backend', 'xla'),
-    ('bss_inverse', 'cholesky'), ('bf', 'gev_ban'), ('wpe_chunk_size', 64),
-    ('wpe_psd_context', 1), ('wpe_solve_refine', 1), ('postfilter', 'x'),
+    ('bss_inverse', 'lu'), ('bf', 'mvdr'), ('wpe_precision', 'default'),
+    ('wpe_stats_backend', 'x'), ('bss_em_backend', 'x'), ('postfilter', 'x'),
 ])
 def test_config_rejects_unported_choices(field, value):
     with pytest.raises(NotImplementedError):

@@ -1,5 +1,6 @@
-"""The WPE statistics kernel (K2) and the Gauss-Jordan kernel's two
-entries (K3, K4) vs their plain PyTorch versions, on the card.
+"""The WPE statistics kernel (K2), the Gauss-Jordan kernel's two entries
+(K3, K4) and the blocked Cholesky solve (K5) vs their plain PyTorch
+versions, on the card.
 
 Marked ``cuda`` and skipped without a CUDA device (the kernels have no
 CPU or interpret mode); run on a machine with an H100 with
@@ -27,6 +28,11 @@ Tolerances and their reasons:
   on an H100), so the conditioning, which amplifies any difference in
   rounding, does not widen these.  Its largest residual ||B X - I||_F is
   also held to <= 2x the plain version's + 1e-6 against float64.
+* K5 on well-conditioned SPD / HPD input: relative Frobenius error per
+  frequency <= 1e-5 against the plain version (the same panels and
+  floor; the 32-wide products summed in other orders) and <= 1e-4
+  against a float64 solve of the same loaded system; the zero-pivot
+  floor pin is exact (1 / FLT_MIN).
 """
 
 import numpy as np
@@ -34,8 +40,8 @@ import pytest
 import torch
 
 from pb_chime5_tpu_torch import _device
-from pb_chime5_tpu_torch.ops import cacgmm
-from pb_chime5_tpu_torch.ops.kernels import gj_inverse, wpe_stats
+from pb_chime5_tpu_torch.ops import cacgmm, linalg
+from pb_chime5_tpu_torch.ops.kernels import chol_solve, gj_inverse, wpe_stats
 from pb_chime5_tpu_torch.ops.linalg import hermitize
 from pb_chime5_tpu_torch.ops.wpe import build_y_tilde, get_power_inverse
 
@@ -45,6 +51,8 @@ STATS_RTOL = 1e-5
 INV_RTOL = 1e-5
 LOGDET_ATOL = 1e-4
 EM_LOGDET_ATOL = 1e-3
+SOLVE_RTOL = 1e-5
+SOLVE_F64_RTOL = 1e-4
 
 GJ_ENTRIES = {
     'k3': (gj_inverse.hermitian_inverse_and_logdet_2d,
@@ -68,7 +76,8 @@ def wpe_inputs(F, D, T, *, taps=10, delay=2, seed=0, device='cpu'):
     Y = torch.as_tensor(Y.astype(np.complex64), device=device)
     fm = torch.arange(T, device=device) < valid
     Y_tilde = (build_y_tilde(Y, taps, delay) * fm).contiguous()
-    return Y_tilde, Y, get_power_inverse(Y, fm).contiguous(), valid
+    return (Y_tilde, Y, get_power_inverse(Y, frame_mask=fm).contiguous(),
+            valid)
 
 
 def stats_errors(R, P, R_ref, P_ref):
@@ -129,6 +138,53 @@ def against_float64(B, inv, ld):
     res = torch.linalg.matrix_norm(B64 @ inv.to(B64.dtype) - eye)
     ld64 = torch.linalg.slogdet(B64)[1]
     return float(res.max()), float((ld.double() - ld64).abs().max())
+
+
+def spd_system(F, S, E, *, seed=0, device='cpu'):
+    """Real SPD (F, S, S) ``M M^T / S + I`` and (F, S, E) right-hand
+    sides, float32."""
+    rng = np.random.default_rng(seed)
+    M = torch.as_tensor(rng.standard_normal((F, S, S)).astype(np.float32),
+                        device=device)
+    A2 = M @ M.transpose(-2, -1) / S + torch.eye(S, device=device)
+    A2 = (A2 + A2.transpose(-2, -1)) / 2
+    B2 = torch.as_tensor(rng.standard_normal((F, S, E)).astype(np.float32),
+                         device=device)
+    return A2.contiguous(), B2
+
+
+def hpd_system(F, D, E, *, seed=0, device='cpu'):
+    """Complex64 HPD (F, D, D): ``M M^H / D + I`` with its rows and
+    columns scaled by factors in [e^-2, e^2] (the equilibration undoes
+    them), and (F, D, E) right-hand sides."""
+    rng = np.random.default_rng(seed)
+
+    def normal(*shape):
+        return torch.as_tensor((rng.standard_normal(shape)
+                                + 1j * rng.standard_normal(shape))
+                               .astype(np.complex64), device=device)
+    M = normal(F, D, D)
+    A = M @ M.conj().transpose(-2, -1) / D \
+        + torch.eye(D, dtype=M.dtype, device=device)
+    s = torch.as_tensor(np.exp(rng.uniform(-2, 2, (F, D))).astype(np.complex64),
+                        device=device)
+    return hermitize(A * s[:, :, None] * s[:, None, :]).contiguous(), \
+        normal(F, D, E)
+
+
+def frobenius_errors(X, ref):
+    """Largest per-batch-element relative Frobenius error of X."""
+    return float((torch.linalg.matrix_norm(X - ref.to(X.dtype))
+                  / torch.linalg.matrix_norm(ref.to(X.dtype))).max())
+
+
+def solve_error_f64(X, A, B, relative_load):
+    """Largest per-frequency relative Frobenius error of X against the
+    float64 solve of the same equilibrated, loaded system."""
+    X64 = linalg.hermitian_solve(A.to(torch.complex128),
+                                 B.to(torch.complex128),
+                                 relative_load=relative_load)
+    return frobenius_errors(X.to(torch.complex128), X64)
 
 
 @pytest.fixture
@@ -248,3 +304,66 @@ def negative_pivot_matrix(D=6, seed=0):
     B = np.eye(D) + 0.01 * (E + E.conj().T) / 2
     B[-1, -1] = -0.5
     return torch.as_tensor(B[None].astype(np.complex64))
+
+
+@pytest.mark.parametrize('F,S,E', [
+    (3, 32, 1), (2, 64, 5), (5, 160, 24), (2, 512, 24), (1, 992, 24),
+], ids=lambda v: str(v))
+def test_chol_solve_matches_reference(cuda, F, S, E):
+    A2, B2 = spd_system(F, S, E, seed=9, device=cuda)
+    before = chol_solve.chol_solve_real_spd.launches
+    X = chol_solve.chol_solve_real_spd(A2, B2)
+    torch.cuda.synchronize()
+    assert chol_solve.chol_solve_real_spd.launches == before + 1
+    assert X.shape == B2.shape and torch.isfinite(X).all()
+    rel = frobenius_errors(X, chol_solve.chol_solve_real_spd_reference(A2, B2))
+    assert rel <= SOLVE_RTOL, rel
+    X64 = torch.linalg.solve(A2.double(), B2.double())
+    assert frobenius_errors(X.double(), X64) <= SOLVE_RTOL
+
+
+def test_hermitian_solve_pallas_at_the_wpe_headline(cuda):
+    """513 systems of 240 x 240 (the real block 480 -> 512), 24
+    right-hand sides, the WPE load 1e-4."""
+    A, B = hpd_system(513, 240, 24, seed=10, device=cuda)
+    before = chol_solve.hermitian_solve_pallas.launches
+    X = chol_solve.hermitian_solve_pallas(A, B, relative_load=1e-4)
+    torch.cuda.synchronize()
+    assert chol_solve.hermitian_solve_pallas.launches == before + 1
+    assert X.dtype == torch.complex64 and torch.isfinite(X).all()
+    ref = chol_solve.hermitian_solve_pallas_reference(A, B,
+                                                      relative_load=1e-4)
+    assert frobenius_errors(X, ref) <= SOLVE_RTOL
+    assert solve_error_f64(X, A, B, 1e-4) <= SOLVE_F64_RTOL
+
+
+def test_chol_solve_zero_pivot_floor_pin(cuda):
+    A2 = torch.eye(64, device=cuda)[None].contiguous()
+    A2[0, 5, 5] = 0
+    B2 = torch.zeros((1, 64, 3), device=cuda)
+    B2[0, 5, 0] = 1
+    B2[0, 7, 1] = 2
+    X = chol_solve.chol_solve_real_spd(A2, B2)
+    want = B2.clone()
+    want[0, 5, 0] = 1 / torch.finfo(torch.float32).tiny
+    assert torch.equal(X, want)
+    assert torch.equal(X, chol_solve.chol_solve_real_spd_reference(A2, B2))
+
+
+def test_chol_solve_is_deterministic(cuda):
+    A2, B2 = spd_system(40, 256, 24, seed=11, device=cuda)
+    assert torch.equal(chol_solve.chol_solve_real_spd(A2, B2),
+                       chol_solve.chol_solve_real_spd(A2, B2))
+
+
+def test_chol_solve_rejects_unsupported_inputs(cuda):
+    A2, B2 = spd_system(2, 64, 3, seed=12, device=cuda)
+    n = chol_solve.max_rows(3) + chol_solve.BLOCK
+    before = chol_solve.chol_solve_real_spd.launches
+    for args in ((A2.double(), B2), (A2, B2.cpu()), (A2[:, :48, :48], B2),
+                 (A2.transpose(-2, -1), B2), (A2[:0], B2[:0]),
+                 (torch.eye(n, device=cuda)[None],
+                  torch.zeros((1, n, 3), device=cuda))):
+        with pytest.raises(ValueError):
+            chol_solve.chol_solve_real_spd(*args)
+    assert chol_solve.chol_solve_real_spd.launches == before

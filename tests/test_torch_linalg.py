@@ -94,3 +94,108 @@ def test_stable_solve_matches_numpy_and_handles_singular(rng):
     np.testing.assert_allclose(X[0], np.linalg.solve(A[0], B[0]),
                                rtol=1e-10)
     np.testing.assert_array_equal(X[1], 0)
+
+
+# --- the rest of ops/linalg.py: tolerances as tests/test_linalg_device.py
+# pins the JAX functions against NumPy in float64 (1e-10 for the
+# inverses, 1e-8 for the solve and the eigenvectors), at 1e-4 relative in
+# complex64 where the two packages round differently.
+
+def test_eye_like_matches_jax(rng):
+    M = _random_hpd(rng, (2, 3), 5, np.complex64)
+    got = tl.eye_like(torch.from_numpy(M))
+    assert got.shape == M.shape and got.dtype == torch.complex64
+    np.testing.assert_array_equal(got.numpy(),
+                                  np.asarray(jl.eye_like(jnp.asarray(M))))
+
+
+@pytest.mark.parametrize('inverse', ['schur_inverse_and_logdet',
+                                     'block_gauss_jordan_inverse_and_logdet'])
+@pytest.mark.parametrize('d', [1, 2, 5, 24, 40])
+@pytest.mark.parametrize('dtype,tol', [(np.complex128, 1e-10),
+                                       (np.complex64, 1e-4)])
+def test_explicit_inverses_match_jax(rng, inverse, d, dtype, tol):
+    M = _random_hpd(rng, (3,), d, dtype)
+    kw = {'block': 8} if inverse.startswith('block') else {}
+    inv, ld = getattr(tl, inverse)(torch.from_numpy(M), **kw)
+    inv_j, ld_j = getattr(jl, inverse)(jnp.asarray(M), **kw)
+    np.testing.assert_allclose(inv.numpy(), np.asarray(inv_j), rtol=tol,
+                               atol=tol * np.abs(np.asarray(inv_j)).max())
+    np.testing.assert_allclose(ld.numpy(), np.asarray(ld_j), rtol=tol,
+                               atol=tol * d)
+    if dtype == np.complex128:
+        np.testing.assert_allclose(inv.numpy(), np.linalg.inv(M),
+                                   atol=1e-10)
+        np.testing.assert_allclose(ld.numpy(), np.linalg.slogdet(M)[1],
+                                   atol=1e-10)
+
+
+@pytest.mark.parametrize('method', ['gj', 'block_gj', 'schur', 'chol'])
+@pytest.mark.parametrize('refine', [0, 2])
+def test_hermitian_solve_methods_match_jax(rng, method, refine):
+    """Each ``method`` and iterative refinement (residual against the
+    unloaded matrix, the factorization reused) against the JAX function
+    in complex128, at a load of 1e-3 that refinement must mostly undo."""
+    d = 40
+    A = _random_hpd(rng, (3,), d, np.complex128)
+    B = rng.standard_normal((3, d, 4)) + 1j * rng.standard_normal((3, d, 4))
+    kw = dict(relative_load=1e-3, method=method, refine=refine)
+    got = tl.hermitian_solve(torch.from_numpy(A), torch.from_numpy(B),
+                             **kw).numpy()
+    want = np.asarray(jl.hermitian_solve(jnp.asarray(A), jnp.asarray(B),
+                                         **kw))
+    np.testing.assert_allclose(got, want, atol=1e-8 * np.abs(want).max())
+    exact = np.linalg.solve(A, B)
+    bias = np.abs(got - exact).max() / np.abs(exact).max()
+    assert bias < (1e-5 if refine else 1e-2), bias
+
+
+def test_hermitian_solve_default_call_is_unchanged(rng):
+    """``method=None, refine=0`` is 'gj' up to d = 32 and 'chol' above,
+    bit for bit."""
+    for d, method in ((8, 'gj'), (40, 'chol')):
+        A = torch.from_numpy(_random_hpd(rng, (2,), d, np.complex64))
+        B = torch.from_numpy(
+            (rng.standard_normal((2, d, 3)) + 0j).astype(np.complex64))
+        torch.testing.assert_close(
+            tl.hermitian_solve(A, B),
+            tl.hermitian_solve(A, B, method=method, refine=0), rtol=0,
+            atol=0)
+    with pytest.raises(ValueError):
+        tl.hermitian_solve(A, B, method='lu')
+
+
+@pytest.mark.parametrize('kind', ['hermitian', 'generalized', 'real'])
+def test_dominant_eigenvector_matches_jax_and_numpy(rng, kind):
+    M = _random_hpd(rng, (4,), 6, np.complex128)
+    if kind == 'generalized':
+        N = _random_hpd(rng, (4,), 6, np.complex128)
+        M = np.linalg.solve(N, M)
+    elif kind == 'real':
+        M = M.real @ M.real.swapaxes(-1, -2)
+    v = tl.dominant_eigenvector(torch.from_numpy(M)).numpy()
+    np.testing.assert_allclose(
+        v, np.asarray(jl.dominant_eigenvector(jnp.asarray(M))), atol=1e-8)
+    w, V = np.linalg.eig(M)
+    ref = np.take_along_axis(V, np.argmax(w.real, -1)[:, None, None],
+                             -1)[..., 0]
+    ref = ref / np.linalg.norm(ref, axis=-1, keepdims=True)
+    ref = ref * np.exp(-1j * np.angle(ref[..., :1]))
+    np.testing.assert_allclose(v, ref, atol=1e-8)
+
+
+def test_dominant_eigenvector_float32_matches_jax(rng):
+    M = _random_hpd(rng, (5,), 24, np.complex64)
+    v = tl.dominant_eigenvector(torch.from_numpy(M)).numpy()
+    np.testing.assert_allclose(
+        v, np.asarray(jl.dominant_eigenvector(jnp.asarray(M))), atol=1e-4)
+
+
+def test_stable_cholesky_matches_jax(rng):
+    M = _random_hpd(rng, (3,), 6, np.complex128)
+    M[2] = -np.eye(6)                         # not PD: NaN, as in JAX
+    got = tl.stable_cholesky(torch.from_numpy(M)).numpy()
+    want = np.asarray(jl.stable_cholesky(jnp.asarray(M)))
+    np.testing.assert_allclose(got[:2], want[:2], atol=1e-10)
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    assert np.isnan(got[2]).any()
