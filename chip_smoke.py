@@ -13,7 +13,8 @@ Phases (the first failure ends the run with a non-zero exit code):
 3. kernels vs plain, at the shapes of the headline utterance, each timed
    with CUDA events in turns (plain, kernel, library call, and back)
    beside its bound (the larger of its bytes over 3.35 TB/s and its
-   operations over the 67 TFLOP/s fp32 rate, H100 SXM data sheet):
+   operations over the 67 TFLOP/s fp32 rate, H100 SXM data sheet; K1's
+   counts the forms of every class, the S update of the active ones):
    K1 the fused E+M kernel (F=513, T=2504, D=24, K=5), K2 the WPE
    statistics (F=513, dim=240, D=24, T=2504), K3 / K4 the Gauss-Jordan
    inverse's two entries on the EM's (513, 5, 24, 24) batch, K5 the
@@ -36,9 +37,13 @@ Phases (the first failure ends the run with a non-zero exit code):
    'pallas')`` on the ~40 s utterance, warm: 20 K1, 20 K3 and 3 K2
    launches, a finite non-silent WAV of the utterance's length, its stage
    times beside the default path's; the small scene card vs CPU again;
-6. the WPE systems of P06: the first WPE iteration's R and P of the
-   ~40 s utterance, solved by K5, its plain version and the port's
-   ``hermitian_solve`` (cuSOLVER); per-frequency residuals of the loaded,
+6. P06's EM state and WPE systems: K1's inputs at the first masked E+M
+   pass of the ~40 s utterance (default config), captured by a one-shot
+   wrapper: the share of active (frame, class) pairs, S and den vs plain
+   at the headline tolerances (both versions' S vs float64 printed) and
+   their times; the first WPE iteration's R
+   and P of the ~40 s utterance, solved by K5, its plain version and the
+   port's ``hermitian_solve`` (cuSOLVER); per-frequency residuals of the loaded,
    equilibrated system in float64 and the pairwise differences of G; K5's
    largest residual must be <= 2x its plain version's + 1e-6;
 7. options path: the session ``Enhancer`` on P06, warm, once for each of
@@ -197,24 +202,28 @@ def k1_vs_plain(torch, fused_em):
     t = in_turns(torch, {
         'plain': (lambda: fused_em.fused_em_scatter_reference(*timed), 2),
         'kernel': (lambda: fused_em.fused_em_scatter(*timed), 10)})
-    z, (lw, prec, ld), act, fm = timed
-    F, T, D, K = HEADLINE
-    # what the function needs, using the Hermitian structure: per valid
-    # frame the lower triangle of z z^H (3 D^2); per valid frame and
-    # active class (act > 0; an inactive class gets gamma = 0) the E-step
-    # form Re tr(P_k z z^H) over the lower triangle (2 D^2) and the
-    # update of S_k's lower triangle by (gamma / q) z z^H (2 D^2)
-    valid = fm > 0
-    pairs = int(((act > 0) & valid).sum())
-    flops = F * (int(valid.sum()) * 3 * D * D + pairs * 4 * D * D)
-    # z and the small inputs once, P's lower triangle, S and den written
-    prec_bytes = F * K * D * (D + 1) // 2 * 8
-    out_bytes = F * K * D * D * 8 + F * K * 4
-    bound_ms, bound_by = bound(
-        nbytes(z, lw, ld, act, fm) + prec_bytes + out_bytes, flops)
+    bound_ms, bound_by = k1_bound(*timed)
     print_times(f'fused_em at F,T,D,K={HEADLINE}', t, bound_ms, bound_by)
     return dict(max_abs_err=worst_abs, ms=t['kernel'], plain_ms=t['plain'],
                 library_ms=None, bound_ms=bound_ms, bound_by=bound_by)
+
+
+def k1_bound(z, params, act, fm):
+    """K1's bound on these inputs, using the Hermitian structure: per
+    valid frame the lower triangle of z z^H (3 D^2 flops) and the form
+    Re tr(P_k z z^H) for EVERY class (2 D^2 each: the log-pdf is shifted
+    by its max over all K before the activity gate, so no class's form can
+    be skipped); the update of S_k's lower triangle (2 D^2) only for the
+    active (frame, class) pairs.  Every input read once (P in full: both
+    triangles enter), S and den written once."""
+    F, T, D = z.shape
+    K = act.shape[0]
+    valid = fm > 0
+    n_valid = int(valid.sum())
+    pairs = int(((act > 0) & valid).sum())
+    flops = F * (n_valid * (3 + 2 * K) * D * D + pairs * 2 * D * D)
+    out_bytes = F * K * D * D * 8 + F * K * 4
+    return bound(nbytes(z, *params, act, fm) + out_bytes, flops)
 
 
 def k2_vs_plain(torch, wpe_stats):
@@ -654,6 +663,80 @@ def all_pallas_path(torch, counts, enhancer, examples):
     return launches
 
 
+def capture_k1_inputs(enhancer, ex, n=1):
+    """K1's inputs at E+M pass ``n`` (0: the first, unmasked) of
+    ``enhancer.enhance_example(ex)``, captured by a one-shot wrapper of the
+    entry that ``ops/cacgmm.py`` calls (as ``LaunchCounts`` wraps the
+    entries); every pass still runs the kernel."""
+    from pb_chime5_tpu_torch.ops import cacgmm
+    real = cacgmm.fused_em_scatter
+    passes = []
+
+    def capture(z, params, act, fm):
+        passes.append((z.clone(), tuple(p.clone() for p in params),
+                       act.clone(), fm.clone()) if len(passes) == n
+                      else None)
+        return real(z, params, act, fm)
+    cacgmm.fused_em_scatter = capture
+    try:
+        enhancer.enhance_example(ex)
+    finally:
+        cacgmm.fused_em_scatter = real
+    check(len(passes) == EM_PASSES, f'{len(passes)} E+M passes, expected '
+          f'{EM_PASSES}')
+    return passes[n]
+
+
+def k1_on_p06(torch, fused_em, enhancer, examples):
+    """Phase 6, first part: K1 on P06's real EM state, its inputs at the
+    first masked pass (the second of the 20) of the longest utterance at
+    the default config; the share of active (frame, class) pairs, S and
+    den against the plain version at the headline tolerances, both
+    versions' S against the plain formula in float64 (printed), and the
+    times beside the bound on these inputs."""
+    from tests.test_torch_fused_em_cuda import scatter_errors
+    inputs = capture_k1_inputs(enhancer, max(examples,
+                                             key=observation_seconds))
+    z, _, act, fm = inputs
+    F, T, D = z.shape
+    K = act.shape[0]
+    valid = fm > 0
+    n_valid = int(valid.sum())
+    active = int(((act > 0) & valid).sum())
+    print(f'K1 on P06 (first masked pass): F={F}, T={T}, D={D}, K={K}, '
+          f'{n_valid} valid frames; active (frame, class) pairs '
+          f'{active} of {n_valid * K} = {active / (n_valid * K):.4f}, '
+          f'{active / n_valid:.3f} classes per frame; per class '
+          f'{[round(float(a), 4) for a in (act > 0)[:, valid].float().mean(1)]}',
+          flush=True)
+    S, den = fused_em.fused_em_scatter(*inputs)
+    torch.cuda.synchronize()
+    S_ref, den_ref = fused_em.fused_em_scatter_reference(*inputs)
+    rel_S, rel_den, max_abs = scatter_errors(S, den, S_ref, den_ref)
+    lw, prec, ld = inputs[1]
+    S64, den64 = fused_em.fused_em_scatter_reference(
+        z.to(torch.complex128), (lw.double(), prec.to(torch.complex128),
+                                 ld.double()), act.double(), fm.double())
+    rel64 = scatter_errors(S.to(torch.complex128), den.double(), S64,
+                           den64)[0]
+    rel64_ref = scatter_errors(S_ref.to(torch.complex128), den_ref.double(),
+                               S64, den64)[0]
+    del S64, den64
+    print(f'K1 on P06: vs plain rel_S {rel_S:.3e} (<= {S_RTOL}), rel_den '
+          f'{rel_den:.3e} (<= {DEN_RTOL}), max_abs {max_abs:.3e}; S vs '
+          f'float64: kernel {rel64:.3e}, plain {rel64_ref:.3e}', flush=True)
+    check(bool(torch.isfinite(S).all() and torch.isfinite(den).all()),
+          'K1 output on P06 is not finite')
+    check(rel_S <= S_RTOL and rel_den <= DEN_RTOL,
+          'K1 disagrees with its plain version on P06')
+    del S, den, S_ref, den_ref
+    t = in_turns(torch, {
+        'plain': (lambda: fused_em.fused_em_scatter_reference(*inputs), 2),
+        'kernel': (lambda: fused_em.fused_em_scatter(*inputs), 10)})
+    print_times(f'K1 on P06 at F,T,D,K=({F}, {T}, {D}, {K})', t,
+                *k1_bound(*inputs))
+
+
 def wpe_systems(torch, chol_solve, enhancer, examples):
     """Phase 6: the first WPE iteration's systems of the longest
     utterance (R (513, 240, 240), P (513, 240, 24) of its STFT, as
@@ -874,7 +957,9 @@ def main():
         print('== 5 all-Pallas path', flush=True)
         pallas_launches = all_pallas_path(torch, counts, enhancer, examples)
         torch.cuda.empty_cache()
-        print('== 6 WPE systems of P06', flush=True)
+        print('== 6 K1 on the EM state and WPE systems of P06', flush=True)
+        k1_on_p06(torch, fused_em, enhancer, examples)
+        torch.cuda.empty_cache()
         wpe_systems(torch, chol_solve, enhancer, examples)
         torch.cuda.empty_cache()
         print('== 7 options path', flush=True)

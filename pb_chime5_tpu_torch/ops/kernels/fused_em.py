@@ -8,6 +8,12 @@ version.
 placement, dtype, layout or size it raises.  Nothing falls back: a
 failed build or launch raises.  ``fused_em_scatter.launches`` counts
 kernel launches (never reference calls).
+
+The kernel forms q_kt as this plain version does (the rows of P_k z_t,
+then the conjugate dot), so that it rounds as the plain version rounds,
+and accumulates S in the Hermitian form: :func:`frame_features` states
+in plain PyTorch the layout of the D^2 real features of z z^H that it
+forms per valid frame and in which it sums S's lower triangle.
 """
 
 import ctypes
@@ -16,14 +22,18 @@ import torch
 
 from pb_chime5_tpu_torch.ops.kernels._build import check_launch, kernel_entry
 
-__all__ = ['fused_em_scatter', 'fused_em_scatter_reference', 'MAX_D',
-           'MAX_K']
+__all__ = ['fused_em_scatter', 'fused_em_scatter_reference', 'frame_features',
+           'quadratic_form', 'MAX_D', 'MAX_K', 'CHUNK', 'CLUSTER']
 
 # the kernel's compile-time bounds (kMaxD / kMaxK in csrc/fused_em.cu,
 # whose launcher also rejects anything outside them): 6 arrays x 4 mics,
 # 4 speakers + the noise class
 MAX_D = 24
 MAX_K = 5
+# how the kernel splits T (kChunk / kCluster): frames 32c .. 32c + 31 form
+# chunk c, which the CTA of rank c % 2 in the frequency's cluster takes
+CHUNK = 32
+CLUSTER = 2
 
 
 _ARGTYPES = (ctypes.c_void_p,) * 8 + (ctypes.c_int,) * 4 + (ctypes.c_void_p,)
@@ -90,14 +100,37 @@ def fused_em_scatter(z, params, act, fm):
 fused_em_scatter.launches = 0
 
 
+def _lower_pairs(D, device):
+    """Row and column of the pairs d > e of a D x D lower triangle, in
+    row-major order."""
+    return torch.tril_indices(D, D, -1, device=device).unbind(0)
+
+
+def frame_features(z):
+    """(..., D) complex -> (..., D^2) real: Re and Im of z_d conj(z_e) for
+    each pair d > e in row-major order, interleaved, then |z_d|^2 for each
+    d.  The kernel forms these per valid frame and sums S's lower
+    triangle in this layout."""
+    d, e = _lower_pairs(z.shape[-1], z.device)
+    m = z[..., d] * z[..., e].conj()
+    off = torch.stack((m.real, m.imag), dim=-1).flatten(-2)
+    return torch.cat((off, z.real ** 2 + z.imag ** 2), dim=-1)
+
+
+def quadratic_form(z, precision):
+    """Re(z_t^H P_k z_t) by the full complex product: z (F, T, D),
+    precision (F, K, D, D) -> (F, K, T)."""
+    vz = torch.einsum('fkde,fte->fktd', precision, z)
+    return (vz * z.conj()[:, None]).real.sum(dim=-1)
+
+
 def fused_em_scatter_reference(z, params, act, fm):
     """Plain PyTorch version of :func:`fused_em_scatter` (same formula,
     batched einsums over (F, K, T, D))."""
     log_weight, precision, logdet = params
     D = z.shape[-1]
     tiny = torch.finfo(torch.float32).tiny
-    vz = torch.einsum('fkde,fte->fktd', precision, z)
-    q = torch.clamp_min((vz * z.conj()[:, None]).real.sum(dim=-1), tiny)
+    q = torch.clamp_min(quadratic_form(z, precision), tiny)
     log_pdf = log_weight[..., None] - D * torch.log(q) - logdet[..., None]
     log_pdf = log_pdf - log_pdf.amax(dim=1, keepdim=True)
     gamma = torch.exp(log_pdf) * act

@@ -33,10 +33,17 @@ def _to_numpy(z, params, act, fm):
             fm.numpy())
 
 
-@pytest.mark.parametrize('identity', [False, True])
-def test_scatter_reference_matches_jax_kernel(identity):
-    z, params, act, fm = random_inputs(8, 300, 4, 3, seed=1,
-                                       identity=identity)
+# ids as before the non-Hermitian case was added (False: HPD, True: the
+# identity first pass)
+@pytest.mark.parametrize('case', ['hpd', 'identity', 'non_hermitian'],
+                         ids=['False', 'True', 'non_hermitian'])
+def test_scatter_reference_matches_jax_kernel(case):
+    """Also for a precision that is HPD plus an anti-Hermitian part: both
+    versions take the full product P z, as the port's kernel does."""
+    identity = case == 'identity'
+    z, params, act, fm = random_inputs(
+        8, 300, 4, 3, seed=1, identity=identity,
+        skew=0.3 if case == 'non_hermitian' else 0.0)
     S, den = fused_em.fused_em_scatter_reference(z, params, act, fm)
     zn, pn, an, fn = _to_numpy(z, params, act, fm)
     S_j, den_j = jax_fused_em_scatter(

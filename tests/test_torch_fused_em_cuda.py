@@ -25,15 +25,23 @@ pytestmark = pytest.mark.cuda
 
 S_RTOL = 1e-4
 DEN_RTOL = 1e-5
+# den of one to a few hundred frames: nothing averages the per-frame
+# rounding, and a q that differs by ~4e-7 relative between two float32
+# orders moves gamma by ~D times that (2.4e-5 at D = 24; 1.05e-5 measured
+# at T = 1)
+DEN_RTOL_SHORT = 1e-4
 
 
-def random_inputs(F, T, D, K, *, seed=0, identity=False, device='cpu'):
+def random_inputs(F, T, D, K, *, seed=0, identity=False, skew=0.0,
+                  device='cpu'):
     """Seeded inputs at a given shape, made with NumPy: unit-norm z,
     random Hermitian PD precisions (or identities with zero log-weights
     and logdets when ``identity``: the EM's initial pass), an activity
     gate with one all-zero class and an always-on last class (or, when
     ``identity``, the floored column-normalized initialization), and a
-    frame mask with a padded tail of T // 10 frames."""
+    frame mask with a padded tail of T // 10 frames.  ``skew`` > 0 adds
+    ``skew`` times a random anti-Hermitian matrix to each precision, drawn
+    after everything else (the other inputs do not change)."""
     rng = np.random.default_rng(seed)
     z = rng.standard_normal((F, T, D)) + 1j * rng.standard_normal((F, T, D))
     z /= np.linalg.norm(z, axis=-1, keepdims=True)
@@ -57,6 +65,10 @@ def random_inputs(F, T, D, K, *, seed=0, identity=False, device='cpu'):
         act = active.astype(np.float64)
     fm = np.ones(T)
     fm[T - T // 10:] = 0.0
+    if skew:
+        B = rng.standard_normal((F, K, D, D)) \
+            + 1j * rng.standard_normal((F, K, D, D))
+        precision = precision + skew * (B - B.conj().swapaxes(-1, -2)) / 2
 
     def t(x, dtype):
         return torch.as_tensor(np.ascontiguousarray(x), dtype=dtype,
@@ -111,6 +123,84 @@ def test_kernel_matches_reference(cuda, shape, identity):
     assert torch.isfinite(S).all() and torch.isfinite(den).all()
     assert rel_S <= S_RTOL, rel_S
     assert rel_den <= DEN_RTOL, rel_den
+
+
+def check_against_reference(z, params, act, fm, den_rtol=DEN_RTOL):
+    """One launch, counted, finite and within the tolerances of the plain
+    version; returns (S, den)."""
+    before = fused_em.fused_em_scatter.launches
+    S, den = fused_em.fused_em_scatter(z, params, act, fm)
+    torch.cuda.synchronize()
+    assert fused_em.fused_em_scatter.launches == before + 1
+    S_ref, den_ref = fused_em.fused_em_scatter_reference(z, params, act, fm)
+    rel_S, rel_den, _ = scatter_errors(S, den, S_ref, den_ref)
+    assert torch.isfinite(S).all() and torch.isfinite(den).all()
+    assert rel_S <= S_RTOL, rel_S
+    assert rel_den <= den_rtol, rel_den
+    return S, den
+
+
+def test_non_hermitian_precision(cuda):
+    """HPD plus an anti-Hermitian part: the kernel forms the full product
+    P z, as the plain version does."""
+    check_against_reference(*random_inputs(16, 333, 24, 5, seed=10,
+                                           skew=0.3, device=cuda))
+
+
+def test_interior_masked_frames_and_zero_rows(cuda):
+    z, params, act, fm = random_inputs(8, 300, 24, 5, seed=11, device=cuda)
+    fm[40:75] = 0
+    fm[130] = 0
+    z[:, 10] = 0            # zero observations on valid frames
+    z[:, 64:66] = 0
+    z[:, 50] = 0            # and on a masked one
+    check_against_reference(z, params, act, fm)
+
+
+def test_silent_and_single_frame_classes(cuda):
+    z, params, act, fm = random_inputs(8, 300, 24, 5, seed=12, device=cuda)
+    act[0] = 0
+    act[2] = 0
+    act[2, 57] = 1
+    S, den = check_against_reference(z, params, act, fm)
+    assert not S[:, 0].any() and not den[:, 0].any()
+    assert den[:, 2].gt(0).any()
+
+
+# the last (partial) chunk on each rank of the cluster, T below one chunk
+# and T = 1
+CHUNK_SPAN = fused_em.CHUNK * fused_em.CLUSTER
+
+
+@pytest.mark.parametrize('T', [1, 17, fused_em.CHUNK + 18,
+                               2 * fused_em.CHUNK + 26,
+                               3 * fused_em.CHUNK + 24,
+                               CHUNK_SPAN + 22, 2 * CHUNK_SPAN + 3 * 32 + 1])
+def test_partial_chunks(cuda, T):
+    for identity in (False, True):
+        check_against_reference(*random_inputs(6, T, 24, 5, seed=T,
+                                               identity=identity,
+                                               device=cuda),
+                                den_rtol=DEN_RTOL_SHORT)
+
+
+@pytest.mark.parametrize('T', [100, 333])
+@pytest.mark.parametrize('extra', [1, 37, 300])
+def test_padding_invariance(cuda, T, extra):
+    """T padded with fm == 0 frames (garbage z, act on) gives the S and den
+    of the unpadded T bit for bit: chunks sit at fixed frame offsets and
+    masked frames are skipped."""
+    z, params, act, fm = random_inputs(8, T, 24, 5, seed=13, device=cuda)
+    rng = np.random.default_rng(14)
+    pad = torch.as_tensor(rng.standard_normal((8, extra, 24)),
+                          dtype=torch.complex64, device=cuda)
+    z2 = torch.cat((z, pad), dim=1).contiguous()
+    act2 = torch.cat((act, torch.ones((5, extra), device=cuda)),
+                     dim=1).contiguous()
+    fm2 = torch.cat((fm, torch.zeros(extra, device=cuda))).contiguous()
+    S1, den1 = fused_em.fused_em_scatter(z, params, act, fm)
+    S2, den2 = fused_em.fused_em_scatter(z2, params, act2, fm2)
+    assert torch.equal(S1, S2) and torch.equal(den1, den2)
 
 
 def test_kernel_is_deterministic(cuda):
