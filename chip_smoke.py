@@ -9,14 +9,15 @@ Phases (the first failure ends the run with a non-zero exit code):
 2. build: the four kernel libraries (``csrc/fused_em.cu``,
    ``csrc/wpe_stats.cu``, ``csrc/gj_inverse.cu``, ``csrc/chol_solve.cu``)
    are compiled by concurrent nvcc processes; each kernel's registers and
-   spills are printed;
+   spills are printed, and K2's dynamic shared memory and CTAs per SM;
 3. kernels vs plain, at the shapes of the headline utterance, each timed
    with CUDA events in turns (plain, kernel, library call, and back)
    beside its bound (the larger of its bytes over 3.35 TB/s and its
    operations over the 67 TFLOP/s fp32 rate, H100 SXM data sheet; K1's
    counts the forms of every class, the S update of the active ones):
    K1 the fused E+M kernel (F=513, T=2504, D=24, K=5), K2 the WPE
-   statistics (F=513, dim=240, D=24, T=2504), K3 / K4 the Gauss-Jordan
+   statistics (F=513, dim=240, D=24, T=2504) and its device time from a
+   CUDA graph, K3 / K4 the Gauss-Jordan
    inverse's two entries on the EM's (513, 5, 24, 24) batch, K5 the
    blocked Cholesky solve on 513 WPE-sized systems (240 x 240 complex as
    a 512 x 512 real block, 24 right-hand sides) beside ``cholesky_ex`` +
@@ -41,9 +42,10 @@ Phases (the first failure ends the run with a non-zero exit code):
    pass of the ~40 s utterance (default config), captured by a one-shot
    wrapper: the share of active (frame, class) pairs, S and den vs plain
    at the headline tolerances (both versions' S vs float64 printed) and
-   their times; the first WPE iteration's R
-   and P of the ~40 s utterance, solved by K5, its plain version and the
-   port's ``hermitian_solve`` (cuSOLVER); per-frequency residuals of the loaded,
+   their times; the first WPE iteration's R and P of the ~40 s utterance
+   by K2 and by its plain version (R and P <= 1e-5 per frequency, both
+   timed in turns), solved by K5, its plain version and the port's
+   ``hermitian_solve`` (cuSOLVER); per-frequency residuals of the loaded,
    equilibrated system in float64 and the pairwise differences of G; K5's
    largest residual must be <= 2x its plain version's + 1e-6;
 7. options path: the session ``Enhancer`` on P06, warm, once for each of
@@ -262,6 +264,10 @@ def k2_vs_plain(torch, wpe_stats):
     bound_ms, bound_by = bound(nbytes(Yt, Y, w) + out_bytes, flops)
     print_times(f'wpe_statistics at F,dim,D,T=({F}, {dim}, {D}, {T})', t,
                 bound_ms, bound_by)
+    device_ms = graph_ms(
+        torch, lambda: wpe_stats.wpe_statistics(Yt, Y, w), 3)
+    print(f'wpe_statistics device time from a CUDA graph: kernel '
+          f'{device_ms:.4f} ms', flush=True)
     return dict(max_abs_err=max_abs, ms=t['kernel'], plain_ms=t['plain'],
                 library_ms=t['library'], bound_ms=bound_ms,
                 bound_by=bound_by)
@@ -737,23 +743,51 @@ def k1_on_p06(torch, fused_em, enhancer, examples):
                 *k1_bound(*inputs))
 
 
-def wpe_systems(torch, chol_solve, enhancer, examples):
-    """Phase 6: the first WPE iteration's systems of the longest
+def wpe_systems(torch, chol_solve, wpe_stats, enhancer, examples):
+    """Phase 6: the first WPE iteration's statistics of the longest
     utterance (R (513, 240, 240), P (513, 240, 24) of its STFT, as
-    ``ops/wpe.py`` builds them), solved by K5, its plain version and the
-    port's cuSOLVER ``hermitian_solve`` at the WPE load."""
+    ``ops/wpe.py`` builds them) by K2 and by its plain version, held to
+    each other and timed in turns; the plain version's R and P solved by
+    K5, its plain version and the port's cuSOLVER ``hermitian_solve`` at
+    the WPE load."""
     import numpy as np
     from pb_chime5_tpu_torch.models import gss
     from pb_chime5_tpu_torch.models.gss import GssConfig
     from pb_chime5_tpu_torch.ops import linalg, wpe
-    from pb_chime5_tpu_torch.ops.kernels.wpe_stats import (
-        wpe_statistics_reference)
+    from tests.test_torch_kernels_cuda import stats_errors
     ex = max(examples, key=observation_seconds)
     _, obs = enhancer._prepare_example(ex)
     Y = gss._stft_and_mask(torch.from_numpy(obs).cuda(), None,
-                           GssConfig())[0]
+                           GssConfig())[0].contiguous()
     Y_tilde = wpe.build_y_tilde(Y, WPE_TAPS, 2)
-    R, P = wpe_statistics_reference(Y_tilde, Y, wpe.get_power_inverse(Y))
+    inv_power = wpe.get_power_inverse(Y)
+    R, P = wpe_stats.wpe_statistics_reference(Y_tilde, Y, inv_power)
+    R_k, P_k = wpe_stats.wpe_statistics(Y_tilde, Y, inv_power)
+    torch.cuda.synchronize()
+    rel_R, rel_P, max_abs = stats_errors(R_k, P_k, R, P)
+    F, dim, T = Y_tilde.shape
+    D = Y.shape[1]
+    print(f'K2 on P06 (first WPE iteration): F={F}, dim={dim}, D={D}, '
+          f'T={T}; inv_power {float(inv_power.min()):.3e} .. '
+          f'{float(inv_power.max()):.3e}; rel_R {rel_R:.3e}, rel_P '
+          f'{rel_P:.3e} (<= {STATS_RTOL}), max_abs {max_abs:.3e}',
+          flush=True)
+    check(bool(torch.isfinite(R_k).all() and torch.isfinite(P_k).all()),
+          'K2 output on P06 is not finite')
+    check(rel_R <= STATS_RTOL and rel_P <= STATS_RTOL,
+          'K2 disagrees with its plain version on P06')
+    del R_k, P_k
+    t = in_turns(torch, {
+        'plain': (lambda: wpe_stats.wpe_statistics_reference(
+            Y_tilde, Y, inv_power), 2),
+        'kernel': (lambda: wpe_stats.wpe_statistics(Y_tilde, Y, inv_power),
+                   3)})
+    # every frame of the utterance is valid (no bucket padding here)
+    bound_ms, bound_by = bound(
+        nbytes(Y_tilde, Y, inv_power) + F * dim * (dim + D) * 8,
+        8.0 * F * T * (dim * (dim + 1) // 2 + dim * D))
+    print_times(f'K2 on P06 at F,dim,D,T=({F}, {dim}, {D}, {T})', t,
+                bound_ms, bound_by)
     del Y_tilde
     R = linalg.hermitize(R)
     solvers = {
@@ -899,10 +933,18 @@ class LaunchCounts:
 
 def build(_build):
     """Phase 2: one nvcc per source, all started together."""
+    import ctypes
     start = time.perf_counter()
     _build.load_libraries(LIBRARIES)
     print(f'build + load of {", ".join(LIBRARIES)}: '
           f'{time.perf_counter() - start:.3f} s', flush=True)
+    smem, ctas = ctypes.c_int(), ctypes.c_int()
+    resources = _build.kernel_entry('wpe_stats', 'pb_wpe_statistics_resources',
+                                    (ctypes.c_void_p, ctypes.c_void_p))
+    _build.check_launch(resources(ctypes.addressof(smem),
+                                  ctypes.addressof(ctas)), 'wpe_stats')
+    print(f'wpe_stats: wpe_stats_kernel: {smem.value} bytes of dynamic '
+          f'shared memory a CTA, {ctas.value} CTAs per SM', flush=True)
     for name in LIBRARIES:
         kernel = None          # ptxas resources per kernel instantiation
         for line in _build.build_log(name).splitlines():
@@ -960,7 +1002,7 @@ def main():
         print('== 6 K1 on the EM state and WPE systems of P06', flush=True)
         k1_on_p06(torch, fused_em, enhancer, examples)
         torch.cuda.empty_cache()
-        wpe_systems(torch, chol_solve, enhancer, examples)
+        wpe_systems(torch, chol_solve, wpe_stats, enhancer, examples)
         torch.cuda.empty_cache()
         print('== 7 options path', flush=True)
         options_path(torch, counts, enhancer, examples)

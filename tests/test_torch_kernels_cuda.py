@@ -195,11 +195,16 @@ def cuda():
     return torch.device('cuda')
 
 
-# (F, D, T, taps): partial tiles on every axis, P wider than one tile,
-# one frame, and the headline shape
+# (F, D, T, taps): partial quads and blocks on every axis; dim one below,
+# at and one above the 64-row block (63, 64, 65); D one above the 24
+# columns of P beside the diagonal block (25) and past a further block of
+# 64 (89, 50); one frame (T = 1); T one below and one above the 16-frame
+# chunk and two of them; one tap; and the headline shape
 @pytest.mark.parametrize('shape', [
     (3, 3, 700, 4), (2, 5, 97, 11), (2, 50, 40, 2), (1, 1, 1, 1),
-    (513, 24, 2504, 10),
+    (513, 24, 2504, 10), (2, 21, 200, 3), (2, 8, 64, 8), (2, 13, 150, 5),
+    (2, 25, 90, 2), (1, 89, 70, 1), (3, 24, 1, 10), (2, 24, 15, 10),
+    (2, 24, 17, 10), (2, 24, 31, 10), (2, 24, 33, 10), (2, 24, 300, 1),
 ], ids=lambda s: 'F{}-D{}-T{}-taps{}'.format(*s))
 def test_wpe_stats_matches_reference(cuda, shape):
     F, D, T, taps = shape
@@ -221,6 +226,28 @@ def test_wpe_stats_is_deterministic(cuda):
     inputs = wpe_inputs(32, 24, 900, seed=4, device=cuda)[:3]
     R1, P1 = wpe_stats.wpe_statistics(*inputs)
     R2, P2 = wpe_stats.wpe_statistics(*inputs)
+    assert torch.equal(R1, R2) and torch.equal(P1, P2)
+
+
+# (T, frames appended): inside the last chunk, a whole chunk more, many
+@pytest.mark.parametrize('T,extra', [(100, 20), (64, 32), (33, 300)])
+def test_wpe_stats_padding_invariant(cuda, T, extra):
+    """Frames appended to T with zero Y_tilde (masked: Y and the weight
+    are whatever the padding holds, here noise and 1e8) leave R and P bit
+    for bit as they were: chunks sit at fixed offsets, and a frame of zeros
+    adds exactly nothing."""
+    F, D = 4, 24
+    Yt, Y, w, _ = wpe_inputs(F, D, T, seed=6, device=cuda)
+    rng = np.random.default_rng(7)
+    noise = rng.standard_normal((F, D, extra)) \
+        + 1j * rng.standard_normal((F, D, extra))
+    Yt2 = torch.cat([Yt, Yt.new_zeros((F, Yt.shape[1], extra))], -1)
+    Y2 = torch.cat([Y, torch.as_tensor(noise.astype(np.complex64),
+                                       device=cuda)], -1)
+    w2 = torch.cat([w, w.new_full((F, extra), 1e8)], -1)
+    R1, P1 = wpe_stats.wpe_statistics(Yt, Y, w)
+    R2, P2 = wpe_stats.wpe_statistics(Yt2.contiguous(), Y2.contiguous(),
+                                      w2.contiguous())
     assert torch.equal(R1, R2) and torch.equal(P1, P2)
 
 

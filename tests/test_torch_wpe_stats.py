@@ -28,18 +28,34 @@ from tests.test_torch_kernels_cuda import stats_errors, wpe_inputs
 torch.set_num_threads(2)
 
 
-def test_reference_matches_jax_kernel():
-    """F = 9, taps * D = 12, T = 700 with a near-silent stretch and a
-    masked tail of 70 frames."""
-    Yt, Y, w, _ = wpe_inputs(9, 3, 700, taps=4, seed=1)
+def reference_vs_jax_kernel(F, D, T, taps, seed):
+    """The plain version and the JAX kernel in interpret mode on the same
+    inputs: (R, P) of the plain version, relative errors of R and P."""
+    Yt, Y, w, _ = wpe_inputs(F, D, T, taps=taps, seed=seed)
     R, P = wpe_stats.wpe_statistics_reference(Yt, Y, w)
     R_j, P_j = jax_wpe_statistics(jnp.asarray(Yt.numpy()),
                                   jnp.asarray(Y.numpy()),
                                   jnp.asarray(w.numpy()), interpret=True)
-    assert R.shape == (9, 12, 12) and P.shape == (9, 12, 3)
-    assert R.dtype == P.dtype == torch.complex64
     rel_R, rel_P, _ = stats_errors(R, P, torch.from_numpy(np.array(R_j)),
                                    torch.from_numpy(np.array(P_j)))
+    return R, P, rel_R, rel_P
+
+
+def test_reference_matches_jax_kernel():
+    """F = 9, taps * D = 12, T = 700 with a near-silent stretch and a
+    masked tail of 70 frames."""
+    R, P, rel_R, rel_P = reference_vs_jax_kernel(9, 3, 700, 4, seed=1)
+    assert R.shape == (9, 12, 12) and P.shape == (9, 12, 3)
+    assert R.dtype == P.dtype == torch.complex64
+    assert rel_R <= 1e-5 and rel_P <= 1e-5, (rel_R, rel_P)
+
+
+# (F, D, T, taps): dim 72 and 75 cross the card kernel's 64-row block, D 25
+# its 24 columns of P beside the diagonal block
+@pytest.mark.parametrize('shape', [(3, 24, 130, 3), (2, 25, 70, 3)],
+                         ids=lambda s: 'F{}-D{}-T{}-taps{}'.format(*s))
+def test_reference_matches_jax_kernel_across_tiles(shape):
+    _, _, rel_R, rel_P = reference_vs_jax_kernel(*shape, seed=8)
     assert rel_R <= 1e-5 and rel_P <= 1e-5, (rel_R, rel_P)
 
 
