@@ -18,7 +18,11 @@ Phases (the first failure ends the run with a non-zero exit code):
    K1 the fused E+M kernel (F=513, T=2504, D=24, K=5), K2 the WPE
    statistics (F=513, dim=240, D=24, T=2504) and its device time from a
    CUDA graph, K3 / K4 the Gauss-Jordan
-   inverse's two entries on the EM's (513, 5, 24, 24) batch, K5 the
+   kernel's inverse-only entries (K3's and K4's floors and the relative
+   floor of the default EM inverse and the MVDR solve) on the EM's
+   (513, 5, 24, 24) batch and its whole-finalize entry ``em_finalize`` in
+   both floor modes on the EM's accumulated S and den, eager and from a
+   CUDA graph, beside the plain finalize, K5 the
    blocked Cholesky solve on 513 WPE-sized systems (240 x 240 complex as
    a 512 x 512 real block, 24 right-hand sides) beside ``cholesky_ex`` +
    ``cholesky_solve`` on the same complex system, then the WPE solve's
@@ -28,21 +32,31 @@ Phases (the first failure ends the run with a non-zero exit code):
 4. default path: a synthetic 6-array x 4-mic PCM16 CHiME-5 session -> DB
    JSON -> the port's CLI ``test_run`` (2 utterances, default
    ``GssConfig``, K = 5 with the garbage class) on the card; the fused
-   kernel must carry every E+M pass (20 per utterance); the WAVs must be
+   kernel must carry every E+M pass and ``em_finalize`` every finalize
+   (20 each per utterance), the Gauss-Jordan kernel the MVDR solve (1);
+   the WAVs must be
    finite, non-silent and of the utterance's length; per-stage and
    per-utterance times; on a small two-speaker scene the card must agree
    with the CPU path and separate the speakers, and the pipeline's
    on-device output trim must equal the host slice;
 5. all-Pallas path: the session ``Enhancer`` with ``GssConfig(
    bss_em_backend='pallas', bss_inverse='pallas_gj', wpe_stats_backend=
-   'pallas')`` on the ~40 s utterance, warm: 20 K1, 20 K3 and 3 K2
-   launches, a finite non-silent WAV of the utterance's length, its stage
+   'pallas')`` on the ~40 s utterance, warm: 20 K1, 20 ``em_finalize``
+   (K3's floor), 3 K2 launches and the MVDR solve's 1, a finite non-silent
+   WAV of the utterance's length, its stage
    times beside the default path's; the small scene card vs CPU again;
 6. P06's EM state and WPE systems: K1's inputs at the first masked E+M
    pass of the ~40 s utterance (default config), captured by a one-shot
    wrapper: the share of active (frame, class) pairs, S and den vs plain
    at the headline tolerances (both versions' S vs float64 printed) and
-   their times; the first WPE iteration's R and P of the ~40 s utterance
+   their times; ``em_finalize`` in both floor modes on K1's S and den of
+   that pass against the plain finalize (precision, logdet, log_weight,
+   a float64 residual; empty classes bit for bit) and its times; the
+   relative-mode inverse on the input that the MVDR solve of that
+   utterance gives it (captured as K1's, 513 equilibrated, loaded noise
+   covariances of 24 x 24) against its plain version (inverse, logdet and
+   a float64 residual at the EM-like batch's gates) and its times; the
+   first WPE iteration's R and P of the ~40 s utterance
    by K2 and by its plain version (R and P <= 1e-5 per frequency, both
    timed in turns), solved by K5, its plain version and the port's
    ``hermitian_solve`` (cuSOLVER); per-frequency residuals of the loaded,
@@ -51,7 +65,9 @@ Phases (the first failure ends the run with a non-zero exit code):
 7. options path: the session ``Enhancer`` on P06, warm, once for each of
    ``bf='gev_ban'``, ``bf='lcmv'``, the WPE options (``psd_context=1,
    chunk_size=512, solve_refine=1``), ``bss_inverse='cholesky'`` and
-   ``'eigh'``: 20 K1 launches and no other kernel, a finite non-silent WAV
+   ``'eigh'``: 20 K1 launches, 20 ``em_finalize`` where the option keeps
+   the Gauss-Jordan EM inverse, the MVDR solve's 1 where it beamforms with
+   MVDR, and no other kernel, a finite non-silent WAV
    of the utterance's length, wall and stage times; on the small scene
    at a 10-iteration EM each option (and ``ch2`` / ``sum``) card vs CPU,
    with the SIR gate for the separating beamformers, GEV without BAN and
@@ -65,6 +81,9 @@ kernel tests' input makers, never JAX or the JAX package
 
 The last three lines of standard output are the card's name and power
 limit, the kernels' JSON record and ``{"ok": true, "device": {...}}``.
+The record has one row per TPU kernel, its top-level numbers those of the
+TPU kernel's own function; K3's and K4's rows list the Gauss-Jordan
+kernel's other entries under ``entries``.
 """
 
 import dataclasses
@@ -88,11 +107,13 @@ INV_RTOL = 1e-5      # K3/K4 on HPD input: relative Frobenius of the inverse
 LOGDET_ATOL = 1e-4   # K3/K4 on HPD input: absolute logdet error
 EM_INV_RTOL = 1e-5   # K3/K4 on the EM-like batch, against the plain version
 EM_LOGDET_ATOL = 1e-3
+LOG_WEIGHT_ATOL = 1e-6  # em_finalize's log-weights against the plain finalize
 SOLVE_RTOL = 1e-5    # K5 vs its plain version: relative Frobenius per freq.
 SOLVE_F64_RTOL = 1e-4  # K5 vs a float64 solve of the same loaded system
 WPE_LOAD = 1e-4      # the WPE filter solve's relative diagonal load
 SCENE_ATOL = 1e-2    # card vs CPU waveform, fraction of the peak
-EM_PASSES = 20       # fused E+M passes per utterance at 20 + 1 iterations
+EM_PASSES = 20       # fused E+M passes (and finalizes) per utterance at 20 + 1
+MVDR_SOLVES = 1      # complex64 Gauss-Jordan solves per utterance (MVDR)
 WPE_ITERATIONS = 3
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 FP32_FLOP_PER_S = 67e12       # H100 SXM data sheet, CUDA cores
@@ -274,19 +295,21 @@ def k2_vs_plain(torch, wpe_stats):
 
 
 def gj_vs_plain(torch, gj_inverse):
-    """K3 and K4 on the EM's batch: (a) well-conditioned HPD matrices,
-    against the plain version; (b) EM-like rank-deficient covariances
-    with the 1e-6 jitter, against the plain version, and a residual
-    against float64 no worse than the plain version's (see
-    tests/test_torch_kernels_cuda.py); then the times."""
+    """The Gauss-Jordan kernel's inverse-only entries (K3's floor, K4's
+    and the relative floor) on the EM's batch: (a) well-conditioned HPD
+    matrices, against the plain version; (b) EM-like rank-deficient
+    covariances with the 1e-6 jitter, against the plain version, and a
+    residual against float64 no worse than the plain version's (see
+    tests/test_torch_kernels_cuda.py); then the times.  Then
+    ``em_finalize`` (:func:`finalize_vs_plain`)."""
     from tests.test_torch_kernels_cuda import (
-        GJ_ENTRIES, against_float64, em_like_batch, inverse_errors,
+        GJ_MODES, against_float64, em_like_batch, inverse_errors,
         random_hpd)
     F, _, D, K = HEADLINE
     hpd = random_hpd((F, K), D, seed=12, device='cuda')
     em = em_like_batch(F, K, D, seed=13, device='cuda')
     out = {}
-    for name, (kernel, reference) in GJ_ENTRIES.items():
+    for name, (kernel, reference) in GJ_MODES.items():
         before = kernel.launches
         inv, ld = kernel(hpd)
         torch.cuda.synchronize()
@@ -318,34 +341,128 @@ def gj_vs_plain(torch, gj_inverse):
               f'{kernel.__name__} has a larger residual than its plain '
               f'version on the EM batch')
         max_abs = max(max_abs, em_abs)
-        # the library call computes the inverse only
-        t = in_turns(torch, {
-            'plain': (lambda: reference(hpd), 5),
-            'kernel': (lambda: kernel(hpd), 200),
-            'library': (lambda: torch.linalg.inv_ex(hpd), 20)})
-        # the input's lower triangle read, the inverse and logdet written;
-        # a Hermitian inverse needs ~4 D^3 flops (Cholesky-based: D^3 / 2
-        # complex multiply-adds; Gauss-Jordan issues 8 D^3)
-        N = F * K
-        bound_ms, bound_by = bound(
-            N * D * (D + 1) // 2 * 8 + nbytes(hpd) + N * 4, 4.0 * N * D ** 3)
-        print_times(f'{kernel.__name__} at ({F}, {K}, {D}, {D})', t,
-                    bound_ms, bound_by)
-        # the eager times above include the host's launches (the plain
-        # version issues ~15 a pivot step); the device's share alone:
-        torch.cuda.synchronize()
-        start = time.perf_counter()
-        for _ in range(200):
-            kernel(hpd)
-        host_us = (time.perf_counter() - start) / 200 * 1e6
-        torch.cuda.synchronize()
-        print(f'{kernel.__name__} device time from a CUDA graph: kernel '
-              f'{graph_ms(torch, lambda: kernel(hpd), 200):.4f} ms, plain '
-              f'{graph_ms(torch, lambda: reference(hpd), 5):.4f} ms; host '
-              f'time per kernel call {host_us:.1f} us', flush=True)
         out[kernel.__name__] = dict(
-            max_abs_err=max_abs, ms=t['kernel'], plain_ms=t['plain'],
-            library_ms=t['library'], bound_ms=bound_ms, bound_by=bound_by)
+            max_abs_err=max_abs,
+            **inverse_times(torch, kernel, reference, hpd, 'HPD'))
+    out.update(finalize_vs_plain(torch, gj_inverse))
+    return out
+
+
+def inverse_times(torch, kernel, reference, B, label):
+    """An inverse-only entry of the Gauss-Jordan kernel on ``B``: eager
+    times in turns (plain, kernel, ``inv_ex``) beside the bound, and
+    device times from CUDA graphs, printed."""
+    t = in_turns(torch, {
+        'plain': (lambda: reference(B), 5),
+        'kernel': (lambda: kernel(B), 200),
+        'library': (lambda: torch.linalg.inv_ex(B), 20)})
+    # the input's lower triangle read, the inverse and logdet written; a
+    # Hermitian inverse needs ~4 D^3 flops (Cholesky-based: D^3 / 2
+    # complex multiply-adds; Gauss-Jordan issues 8 D^3)
+    D = B.shape[-1]
+    N = B.numel() // (D * D)
+    bound_ms, bound_by = bound(
+        N * D * (D + 1) // 2 * 8 + nbytes(B) + N * 4, 4.0 * N * D ** 3)
+    print_times(f'{kernel.__name__} on {label} at {tuple(B.shape)}', t,
+                bound_ms, bound_by)
+    # the eager times above include the host's launches (the plain
+    # version issues ~15 a pivot step); the device's share alone:
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for _ in range(200):
+        kernel(B)
+    host_us = (time.perf_counter() - start) / 200 * 1e6
+    torch.cuda.synchronize()
+    print(f'{kernel.__name__} on {label}: device time from a CUDA graph: '
+          f'kernel {graph_ms(torch, lambda: kernel(B), 200):.4f} ms, plain '
+          f'{graph_ms(torch, lambda: reference(B), 5):.4f} ms; host time '
+          f'per kernel call {host_us:.1f} us', flush=True)
+    return dict(ms=t['kernel'], plain_ms=t['plain'], library_ms=t['library'],
+                bound_ms=bound_ms, bound_by=bound_by)
+
+
+def check_finalize(torch, gj_inverse, S, den, floor, label):
+    """``em_finalize`` against the plain finalize on the same S and den:
+    precision, logdet and log_weight at their gates, a float64 residual
+    no worse than the plain version's, empty classes (den = 0, S = 0) bit
+    for bit; returns the largest absolute error."""
+    from tests.test_torch_kernels_cuda import (
+        DIAGONAL_FLOOR, against_float64, finalize_errors,
+        finalized_covariances)
+    before = gj_inverse.em_finalize.launches
+    out = gj_inverse.em_finalize(S, den, diagonal_floor=DIAGONAL_FLOOR,
+                                 floor=floor)
+    torch.cuda.synchronize()
+    check(gj_inverse.em_finalize.launches == before + 1,
+          'em_finalize did not count its launch')
+    ref = gj_inverse.em_finalize_reference(
+        S, den, diagonal_floor=DIAGONAL_FLOOR, floor=floor)
+    rel, dld, dlw = finalize_errors(out, ref)
+    B = finalized_covariances(S, den)
+    res, _ = against_float64(B, out[1], out[2])
+    res_ref, _ = against_float64(B, ref[1], ref[2])
+    empty = (den == 0) & (S.abs().amax(dim=(-2, -1)) == 0)
+    bit = all(torch.equal(a, b) for a, b in zip(out, ref))
+    print(f'em_finalize {floor} on {label}: rel_precision {rel:.3e} '
+          f'(<= {EM_INV_RTOL}), logdet {dld:.3e} (<= {EM_LOGDET_ATOL}), '
+          f'log_weight {dlw:.3e} (<= {LOG_WEIGHT_ATOL}); vs float64: '
+          f'residual {res:.3e} (plain {res_ref:.3e}); bit-equal to plain: '
+          f'{bit}; {int(empty.sum())} empty classes', flush=True)
+    check(all(bool(torch.isfinite(x).all()) for x in out),
+          f'em_finalize output is not finite on {label}')
+    check(rel <= EM_INV_RTOL and dld <= EM_LOGDET_ATOL
+          and dlw <= LOG_WEIGHT_ATOL,
+          f'em_finalize disagrees with the plain finalize on {label}')
+    check(res <= 2 * res_ref + 1e-6,
+          f'em_finalize has a larger residual than the plain finalize on '
+          f'{label}')
+    check(all(torch.equal(a[empty], b[empty]) for a, b in zip(out, ref)),
+          f'em_finalize differs from the plain finalize on an empty class '
+          f'({label})')
+    return max(float((a - b).abs().max()) for a, b in zip(out, ref))
+
+
+def finalize_times(torch, gj_inverse, S, den, floor, label):
+    """Eager times in turns (plain finalize, kernel) and device times from
+    CUDA graphs, printed; the bound: S read and the precision written
+    once, den read and logdet and log_weight written once, and the
+    inverse's 8 D^3 flops a matrix."""
+    from tests.test_torch_kernels_cuda import DIAGONAL_FLOOR
+    kw = dict(diagonal_floor=DIAGONAL_FLOOR, floor=floor)
+    t = in_turns(torch, {
+        'plain': (lambda: gj_inverse.em_finalize_reference(S, den, **kw), 5),
+        'kernel': (lambda: gj_inverse.em_finalize(S, den, **kw), 200)})
+    F, K, D, _ = S.shape
+    bound_ms, bound_by = bound(2 * nbytes(S) + 3 * nbytes(den),
+                               8.0 * F * K * D ** 3)
+    device = graph_ms(torch, lambda: gj_inverse.em_finalize(S, den, **kw),
+                      200)
+    device_plain = graph_ms(
+        torch, lambda: gj_inverse.em_finalize_reference(S, den, **kw), 5)
+    print_times(f'em_finalize {floor} {label} at ({F}, {K}, {D}, {D})', t,
+                bound_ms, bound_by)
+    print(f'em_finalize {floor} {label}: device time from a CUDA graph: '
+          f'kernel {device:.4f} ms, plain {device_plain:.4f} ms', flush=True)
+    return dict(ms=t['kernel'], plain_ms=t['plain'], library_ms=None,
+                bound_ms=bound_ms, bound_by=bound_by, device_ms=device,
+                plain_device_ms=device_plain)
+
+
+def finalize_vs_plain(torch, gj_inverse):
+    """``em_finalize`` at the headline, both floor modes, on the EM's
+    accumulated state (``em_state``: rank-deficient scatter, an empty
+    class, a tiny den, a silent frequency): the gates of
+    :func:`check_finalize`, then the times."""
+    from tests.test_torch_kernels_cuda import em_state
+    F, _, D, K = HEADLINE
+    S, den = em_state(F, K, D, seed=15, device='cuda')
+    out = {}
+    for floor in ('relative', 'flt_min'):
+        max_abs = check_finalize(torch, gj_inverse, S, den, floor,
+                                 'the synthetic EM state')
+        t = finalize_times(torch, gj_inverse, S, den, floor,
+                           'on the synthetic EM state')
+        out[f'em_finalize_{floor}'] = dict(max_abs_err=max_abs, **t)
     return out
 
 
@@ -583,11 +700,14 @@ def default_path(torch, counts, work):
 
     wavs = sorted((exp.run_dir / 'audio' / 'dev').glob('*.wav'))
     check(len(wavs) == 2, f'expected 2 WAVs, got {wavs}')
-    expected = dict.fromkeys(launches, 0)
-    expected['fused_em_scatter'] = EM_PASSES * len(wavs)
+    expected = {**dict.fromkeys(launches, 0),
+                'fused_em_scatter': EM_PASSES * len(wavs),
+                'em_finalize': EM_PASSES * len(wavs),
+                'gauss_jordan_inverse_and_logdet': MVDR_SOLVES * len(wavs)}
     check(launches == expected,
           f'default path launches {launches}, expected {expected} '
-          f'({EM_PASSES} fused E+M passes per utterance)')
+          f'({EM_PASSES} fused E+M passes and finalizes and {MVDR_SOLVES} '
+          f'MVDR solve per utterance)')
     check(not imported_jax(), 'the port imported jax or the JAX package')
 
     enhancer = get_enhancer(multiarray=True, database_path=str(db),
@@ -648,7 +768,8 @@ def all_pallas_path(torch, counts, enhancer, examples):
     print(f'all-Pallas path launches: {launches}', flush=True)
     expected = {**dict.fromkeys(launches, 0),
                 'fused_em_scatter': EM_PASSES,
-                'hermitian_inverse_and_logdet_2d': EM_PASSES,
+                'em_finalize': EM_PASSES,
+                'gauss_jordan_inverse_and_logdet': MVDR_SOLVES,
                 'wpe_statistics': WPE_ITERATIONS}
     check(launches == expected,
           f'all-Pallas launches {launches}, expected {expected}')
@@ -693,13 +814,79 @@ def capture_k1_inputs(enhancer, ex, n=1):
     return passes[n]
 
 
-def k1_on_p06(torch, fused_em, enhancer, examples):
+def capture_mvdr_input(enhancer, ex):
+    """The loaded, equilibrated noise covariances that the MVDR solve of
+    ``enhancer.enhance_example(ex)`` hands the relative-mode entry: the
+    solve's (A, B), captured by a one-shot wrapper of the solve that
+    ``ops/beamform.py`` calls (as ``capture_k1_inputs`` wraps K1's entry;
+    the solve still runs the kernel), conditioned as the solve conditions
+    them."""
+    from pb_chime5_tpu_torch.ops import beamform, linalg
+    real = beamform.hermitian_solve_gj
+    systems = []
+
+    def capture(A, B, **kw):
+        systems.append((A.clone(), B.clone(), kw))
+        return real(A, B, **kw)
+    beamform.hermitian_solve_gj = capture
+    try:
+        enhancer.enhance_example(ex)
+    finally:
+        beamform.hermitian_solve_gj = real
+    check(len(systems) == MVDR_SOLVES, f'{len(systems)} MVDR solves, '
+          f'expected {MVDR_SOLVES}')
+    A, B, kw = systems[0]
+    return linalg.equilibrate(A, B, **kw)[1]
+
+
+def mvdr_on_p06(torch, gj_inverse, enhancer, examples):
+    """Phase 6: the relative-mode inverse on the input the MVDR solve
+    gives it on the longest utterance at the default config (513
+    equilibrated noise covariances of 24 x 24, loaded at 64 eps) against
+    its plain version, ``ops/linalg.py::gauss_jordan_inverse_and_logdet``
+    (the inverse, the logdet and a float64 residual at the gates of the
+    EM-like batch), then its times there."""
+    from pb_chime5_tpu_torch.ops import linalg
+    from tests.test_torch_kernels_cuda import against_float64, inverse_errors
+    B = capture_mvdr_input(enhancer, max(examples, key=observation_seconds))
+    kernel = gj_inverse.gauss_jordan_inverse_and_logdet
+    reference = linalg.gauss_jordan_inverse_and_logdet
+    before = kernel.launches
+    inv, ld = kernel(B)
+    torch.cuda.synchronize()
+    check(kernel.launches == before + 1,
+          f'{kernel.__name__} did not count its launch')
+    inv_ref, ld_ref = reference(B)
+    rel, dld, max_abs = inverse_errors(inv, ld, inv_ref, ld_ref)
+    res, dld64 = against_float64(B, inv, ld)
+    res_ref, dld64_ref = against_float64(B, inv_ref, ld_ref)
+    bit = torch.equal(inv, inv_ref) and torch.equal(ld, ld_ref)
+    print(f'{kernel.__name__} on P06\'s MVDR input {tuple(B.shape)}: vs '
+          f'plain rel_inv {rel:.3e} (<= {EM_INV_RTOL}), logdet {dld:.3e} '
+          f'(<= {EM_LOGDET_ATOL}); vs float64: residual {res:.3e} (plain '
+          f'{res_ref:.3e}), logdet {dld64:.3e} (plain {dld64_ref:.3e}); '
+          f'bit-equal to plain: {bit}', flush=True)
+    check(bool(torch.isfinite(inv).all() and torch.isfinite(ld).all()),
+          f'{kernel.__name__} output is not finite on P06\'s MVDR input')
+    check(rel <= EM_INV_RTOL and dld <= EM_LOGDET_ATOL,
+          f'{kernel.__name__} disagrees with its plain version on P06\'s '
+          f'MVDR input')
+    check(res <= 2 * res_ref + 1e-6,
+          f'{kernel.__name__} has a larger residual than its plain version '
+          f'on P06\'s MVDR input')
+    return dict(max_abs_err=max_abs, **inverse_times(
+        torch, kernel, reference, B, "P06's MVDR input"))
+
+
+def k1_on_p06(torch, fused_em, gj_inverse, enhancer, examples):
     """Phase 6, first part: K1 on P06's real EM state, its inputs at the
     first masked pass (the second of the 20) of the longest utterance at
     the default config; the share of active (frame, class) pairs, S and
     den against the plain version at the headline tolerances, both
     versions' S against the plain formula in float64 (printed), and the
-    times beside the bound on these inputs."""
+    times beside the bound on these inputs.  Then ``em_finalize`` on K1's
+    S and den of that pass, both floor modes, against the plain finalize
+    (:func:`check_finalize`), and its times."""
     from tests.test_torch_fused_em_cuda import scatter_errors
     inputs = capture_k1_inputs(enhancer, max(examples,
                                              key=observation_seconds))
@@ -741,6 +928,10 @@ def k1_on_p06(torch, fused_em, enhancer, examples):
         'kernel': (lambda: fused_em.fused_em_scatter(*inputs), 10)})
     print_times(f'K1 on P06 at F,T,D,K=({F}, {T}, {D}, {K})', t,
                 *k1_bound(*inputs))
+    S, den = fused_em.fused_em_scatter(*inputs)
+    for floor in ('relative', 'flt_min'):
+        check_finalize(torch, gj_inverse, S, den, floor, "P06's EM state")
+        finalize_times(torch, gj_inverse, S, den, floor, "on P06's EM state")
 
 
 def wpe_systems(torch, chol_solve, wpe_stats, enhancer, examples):
@@ -833,6 +1024,17 @@ OPTIONS = {           # phase 7 on P06: GssConfig fields of each option
     'cholesky': dict(bss_inverse='cholesky'),
     'eigh': dict(bss_inverse='eigh'),
 }
+# their kernel launches per utterance beside K1's 20: em_finalize where the
+# EM inverse stays Gauss-Jordan, the complex64 MVDR solve where the
+# beamformer is MVDR (GEV and LCMV solve in float64, on the plain version)
+OPTION_LAUNCHES = {
+    'gev_ban': {'em_finalize': EM_PASSES},
+    'lcmv': {'em_finalize': EM_PASSES},
+    'wpe_options': {'em_finalize': EM_PASSES,
+                    'gauss_jordan_inverse_and_logdet': MVDR_SOLVES},
+    'cholesky': {'gauss_jordan_inverse_and_logdet': MVDR_SOLVES},
+    'eigh': {'gauss_jordan_inverse_and_logdet': MVDR_SOLVES},
+}
 # the small scene, card vs CPU, at the 10-iteration EM of the other
 # phases: each option and ch2 / sum.  GEV + BAN runs without WPE, as
 # tests/test_gss_pipeline.py runs it.  LCMV runs with WPE: without it, its
@@ -862,8 +1064,8 @@ SCENE_ITERATIONS = 10
 
 def options_path(torch, counts, enhancer, examples):
     """Phase 7: the session ``Enhancer`` on the longest utterance, warm,
-    once for each option of OPTIONS (20 K1 launches, nothing else), then
-    the small scene per option."""
+    once for each option of OPTIONS (20 K1 launches and those of
+    OPTION_LAUNCHES, nothing else), then the small scene per option."""
     import numpy as np
     from pb_chime5_tpu_torch.models import gss
     from pb_chime5_tpu_torch.models.gss import GssConfig, gss_enhance
@@ -878,8 +1080,8 @@ def options_path(torch, counts, enhancer, examples):
         x = e.enhance_example(ex)
         wall = time.perf_counter() - start
         launches = counts.read()
-        expected = dict.fromkeys(launches, 0)
-        expected['fused_em_scatter'] = EM_PASSES
+        expected = {**dict.fromkeys(launches, 0),
+                    'fused_em_scatter': EM_PASSES, **OPTION_LAUNCHES[name]}
         print(f'option {name} launches: {launches}', flush=True)
         check(launches == expected,
               f'option {name}: launches {launches}, expected {expected}')
@@ -918,6 +1120,8 @@ class LaunchCounts:
     def __init__(self, fused_em, wpe_stats, gj_inverse, chol_solve):
         self.entries = (fused_em.fused_em_scatter,
                         wpe_stats.wpe_statistics,
+                        gj_inverse.em_finalize,
+                        gj_inverse.gauss_jordan_inverse_and_logdet,
                         gj_inverse.hermitian_inverse_and_logdet_2d,
                         gj_inverse.hermitian_inverse_and_logdet,
                         chol_solve.chol_solve_real_spd,
@@ -949,12 +1153,13 @@ def build(_build):
         kernel = None          # ptxas resources per kernel instantiation
         for line in _build.build_log(name).splitlines():
             if 'Compiling entry' in line:
-                m = re.search(r'\d([a-z][a-z_]*_kernel)(?:IL([bi])(\d+)E)?',
+                m = re.search(r'\d([a-z][a-z_]*_kernel)(I(?:L[bi]\d+E)+E)?',
                               line)
                 kernel = m[1] if m else line
                 if m and m[2]:
-                    kernel += (f'<{"true" if m[3] == "1" else "false"}>'
-                               if m[2] == 'b' else f'<{m[3]}>')
+                    kernel += '<' + ', '.join(
+                        ('true' if v == '1' else 'false') if t == 'b' else v
+                        for t, v in re.findall(r'L([bi])(\d+)E', m[2])) + '>'
             elif kernel and ('registers' in line or 'spill' in line):
                 print(f'{name}: {kernel}: {line.split(":", 1)[-1].strip()}',
                       flush=True)
@@ -999,8 +1204,11 @@ def main():
         print('== 5 all-Pallas path', flush=True)
         pallas_launches = all_pallas_path(torch, counts, enhancer, examples)
         torch.cuda.empty_cache()
-        print('== 6 K1 on the EM state and WPE systems of P06', flush=True)
-        k1_on_p06(torch, fused_em, enhancer, examples)
+        print('== 6 K1, em_finalize and the MVDR inverse on the EM state, '
+              'and the WPE systems, of P06', flush=True)
+        k1_on_p06(torch, fused_em, gj_inverse, enhancer, examples)
+        results['gauss_jordan_inverse_and_logdet'] = mvdr_on_p06(
+            torch, gj_inverse, enhancer, examples)
         torch.cuda.empty_cache()
         wpe_systems(torch, chol_solve, wpe_stats, enhancer, examples)
         torch.cuda.empty_cache()
@@ -1009,30 +1217,54 @@ def main():
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
-    sources = {
-        'fused_em_scatter': ('fused_em.cu', 'fused_em.py:59',
-                             default_launches),
-        'wpe_statistics': ('wpe_stats.cu', 'wpe_stats.py:54',
-                           pallas_launches),
-        'hermitian_inverse_and_logdet_2d': ('gj_inverse.cu',
-                                            'gj_inverse2d.py:67',
-                                            pallas_launches),
-        # entry points only: no GssConfig reaches them
-        'hermitian_inverse_and_logdet': ('gj_inverse.cu',
-                                         'hermitian_inverse.py:34',
-                                         pallas_launches),
-        'chol_solve_real_spd': ('chol_solve.cu', 'chol_solve.py:50',
-                                pallas_launches),
-    }
-    off_path = ('hermitian_inverse_and_logdet', 'chol_solve_real_spd')
-    kernels = []
-    for name, (source, replaces, launches) in sources.items():
-        kernels.append({
-            'name': name, 'route': 'cuda',
-            'source': f'pb_chime5_tpu_torch/csrc/{source}',
-            'replaces': f'pb_chime5_tpu/ops/pallas/{replaces}',
-            'launches': launches[name], **results[name],
-            'on_main_path': name not in off_path})
+    def row(name, source, replaces, launches, numbers, on_main_path=True,
+            **extra):
+        return {'name': name, 'route': 'cuda',
+                'source': f'pb_chime5_tpu_torch/csrc/{source}',
+                'replaces': f'pb_chime5_tpu/ops/pallas/{replaces}',
+                'launches': launches, **numbers,
+                'on_main_path': on_main_path, **extra}
+
+    def entry(name, launches, path):
+        return {**results[name], 'launches': launches, 'path': path}
+    # K3 and K4 are one kernel (csrc/gj_inverse.cu) with floor modes.  Each
+    # row's top-level numbers are its TPU kernel's own floor: K3's at its
+    # call site, the EM finalize of bss_inverse='pallas_gj' (em_finalize,
+    # floor 'flt_min'), K4's by its inverse-only entry.  `entries` holds the
+    # kernel's other entries: K3's floor inverse only (the function of the
+    # earlier rows), and the relative floor of the default path, the
+    # finalize (K3's row) and the MVDR solve's inverse (K4's row)
+    kernels = [
+        row('fused_em_scatter', 'fused_em.cu', 'fused_em.py:59',
+            default_launches['fused_em_scatter'],
+            results['fused_em_scatter']),
+        row('wpe_statistics', 'wpe_stats.cu', 'wpe_stats.py:54',
+            pallas_launches['wpe_statistics'], results['wpe_statistics']),
+        row("em_finalize (floor='flt_min')", 'gj_inverse.cu',
+            'gj_inverse2d.py:67', pallas_launches['em_finalize'],
+            results['em_finalize_flt_min'], path='all-Pallas',
+            entries={
+                'hermitian_inverse_and_logdet_2d': entry(
+                    'hermitian_inverse_and_logdet_2d',
+                    pallas_launches['hermitian_inverse_and_logdet_2d'],
+                    'all-Pallas'),
+                "em_finalize (floor='relative')": entry(
+                    'em_finalize_relative', default_launches['em_finalize'],
+                    'default')}),
+        # no GssConfig reaches K4's floor
+        row('hermitian_inverse_and_logdet', 'gj_inverse.cu',
+            'hermitian_inverse.py:34',
+            default_launches['hermitian_inverse_and_logdet'],
+            results['hermitian_inverse_and_logdet'], on_main_path=False,
+            entries={'gauss_jordan_inverse_and_logdet': entry(
+                'gauss_jordan_inverse_and_logdet',
+                default_launches['gauss_jordan_inverse_and_logdet'],
+                'default')}),
+        # an entry point only: no GssConfig reaches it
+        row('chol_solve_real_spd', 'chol_solve.cu', 'chol_solve.py:50',
+            default_launches['chol_solve_real_spd'],
+            results['chol_solve_real_spd'], on_main_path=False),
+    ]
     print(card, flush=True)
     print(json.dumps({'kernels': kernels}), flush=True)
     print(json.dumps({'ok': True, 'device': {

@@ -396,15 +396,24 @@ def get_enhancer(
     database_path=str(JSON_PATH / 'chime5.json'),
 
     length_buckets=DEFAULT_LENGTH_BUCKETS,
+    compute_dtype=np.float32,
     compile_mode='fused',
     device_audio_cache=False,
+    cache_window_seconds=180.0,
+    cache_prefetch=True,
     device_trim=True,
     device='cuda',
 ):
-    """Factory with the reference's keyword surface
-    (pb_chime5/core.py:574-637), plus the compute ``device``.  The
-    session-audio cache is not ported yet: ``device_audio_cache=True``
-    raises."""
+    """Factory with the keyword surface of the JAX package's
+    ``get_enhancer`` (the reference's, pb_chime5/core.py:574-637, and the
+    JAX extensions), plus the compute ``device``.
+
+    The pipeline computes in float32 only: any other ``compute_dtype``
+    raises (ROADMAP.md, Queue 1 item 5).  The session-audio cache is not
+    ported yet (Queue 1 item 4), so ``device_audio_cache`` defaults to
+    ``False`` where the JAX package defaults to ``True``, and ``True``
+    raises; ``cache_window_seconds`` and ``cache_prefetch`` are accepted
+    with the JAX names and defaults and unused while it is off."""
     assert wpe is True or wpe is False, wpe
     assert activity_path is None or activity_type == 'path', \
         (activity_path, activity_type)
@@ -413,6 +422,10 @@ def get_enhancer(
         assert activity_garbage_class not in (False, None), (
             'bf=lcmv requires a garbage (noise) class: set '
             'activity_garbage_class=True')
+    if np.dtype(compute_dtype) != np.float32:
+        raise NotImplementedError(
+            f'compute_dtype={compute_dtype!r}: the port computes in float32 '
+            f'only (ROADMAP.md, Queue 1 item 5)')
     if device_audio_cache:
         raise NotImplementedError(
             'device_audio_cache is not ported yet (ROADMAP.md, Queue 1); '

@@ -14,6 +14,8 @@ estimators (``ops/masks.py``) are not ported yet (ROADMAP.md, Queue 1).
 
 import torch
 
+from pb_chime5_tpu_torch.ops.kernels.gj_inverse import (
+    MAX_D, hermitian_solve_gj)
 from pb_chime5_tpu_torch.ops.linalg import (
     dominant_eigenvector, hermitian_solve, hermitize)
 
@@ -44,8 +46,12 @@ def mvdr_souden_vector(cov_x, cov_n, *, eps=1e-10, return_ref_channel=False):
     """``w = (Phi_N^{-1} Phi_X / tr(Phi_N^{-1} Phi_X)) e_ref`` with the
     SNR-optimal global reference channel.  cov_x, cov_n (F, D, D) ->
     w (F, D) (and the channel, a 0-d tensor, when
-    ``return_ref_channel``)."""
-    phi = hermitian_solve(cov_n, cov_x)
+    ``return_ref_channel``).  A complex64 solve of d <= 32 channels runs
+    on the Gauss-Jordan kernel (``ops/kernels/gj_inverse.py``), others on
+    the plain ``linalg.hermitian_solve``."""
+    solve = (hermitian_solve_gj if cov_n.dtype == torch.complex64
+             and cov_n.shape[-1] <= MAX_D else hermitian_solve)
+    phi = solve(cov_n, cov_x)
     lam = torch.diagonal(phi, dim1=-2, dim2=-1).sum(-1).real[..., None, None]
     mat = phi / torch.clamp_min(lam, eps).to(phi.dtype)
     ref_channel = _snr_optimal_reference_channel(mat, cov_x, cov_n, eps)

@@ -5,14 +5,15 @@ The port's only EM driver is the counterpart of the JAX fused-kernel
 driver ``_cacgmm_posteriors_pallas``: all frequencies advance together,
 every E+M accumulation is one launch of the fused kernel
 (:func:`~pb_chime5_tpu_torch.ops.kernels.fused_em.fused_em_scatter`), and
-the per-iteration covariance finalize is plain PyTorch batched over
-(F, K).  Its inverse is the plain Gauss-Jordan with a relative pivot
-floor (``inverse='auto'`` / ``'gauss_jordan'``) or, with
-``inverse='pallas_gj'``, one launch of the batched Gauss-Jordan kernel
-(``ops/kernels/gj_inverse.py::hermitian_inverse_and_logdet_2d``, pivot
-floored at ``FLT_MIN``): the two floors differ, as they do in the JAX
+the per-iteration covariance finalize is batched over (F, K).  With the
+Gauss-Jordan inverses the whole finalize is one launch of the
+Gauss-Jordan kernel (``ops/kernels/gj_inverse.py::em_finalize``): with
+the plain Gauss-Jordan's relative pivot floor (``inverse='auto'`` /
+``'gauss_jordan'``) or with K3's pivot floored at ``FLT_MIN``
+(``inverse='pallas_gj'``): the two floors differ, as they do in the JAX
 package.  The other JAX inverses are ported as the JAX ``_invert`` has
-them: ``'cholesky'`` (``cholesky_ex`` + triangular solve; a failed
+them, after the same weights and covariances in plain PyTorch:
+``'cholesky'`` (``cholesky_ex`` + triangular solve; a failed
 factorization gives NaN, as ``jnp.linalg.cholesky`` does), ``'schur'``
 (recursive Schur complements) and ``'eigh'`` (eigenvalues floored
 relative to the largest).  Iteration structure (reference pb_chime5/core.py:180-202
@@ -36,7 +37,8 @@ from pb_chime5_tpu_torch.ops.linalg import (
     schur_inverse_and_logdet)
 from pb_chime5_tpu_torch.ops.kernels.fused_em import fused_em_scatter
 from pb_chime5_tpu_torch.ops.kernels.gj_inverse import (
-    hermitian_inverse_and_logdet_2d)
+    add_jitter, em_covariances, em_finalize, hermitian_inverse_and_logdet_2d,
+    trace_normalize as _trace_normalize)
 
 __all__ = ['CacgmmConfig', 'cacgmm_posteriors', 'make_initialization',
            'params_from_numpy', 'add_jitter']
@@ -86,30 +88,6 @@ def _normalize_observations(y):
     tiny = torch.finfo(norm.dtype).tiny
     return torch.where(norm > tiny, y / torch.clamp_min(norm, tiny),
                        torch.zeros((), dtype=y.dtype, device=y.device))
-
-
-def _trace_normalize(cov):
-    """Scale each class covariance to trace == D; numerically zero
-    covariances (a class silent in the whole window) become I."""
-    D = cov.shape[-1]
-    tr = torch.diagonal(cov, dim1=-2, dim2=-1).sum(-1).real[..., None, None] \
-        / D
-    is_zero = tr <= torch.finfo(tr.dtype).tiny
-    eye = torch.eye(D, dtype=cov.dtype, device=cov.device)
-    return torch.where(
-        is_zero, eye,
-        cov / torch.where(is_zero, torch.ones_like(tr), tr).to(cov.dtype))
-
-
-def add_jitter(cov, diagonal_floor):
-    """``cov + max(diagonal_floor * trace / D, tiny) I``: the EM's
-    conditioning floor before its inverse."""
-    D = cov.shape[-1]
-    tiny = torch.finfo(cov.real.dtype).tiny
-    tr = torch.diagonal(cov, dim1=-2, dim2=-1).sum(-1).real
-    jitter = torch.clamp_min(diagonal_floor * tr / D, tiny)
-    return cov + jitter[..., None, None].to(cov.dtype) \
-        * torch.eye(D, dtype=cov.dtype, device=cov.device)
 
 
 def _invert(cov, config: CacgmmConfig):
@@ -171,22 +149,19 @@ def _e_step(z, params, source_activity_mask):
     return gamma, quadratic_form
 
 
+# the Gauss-Jordan inverses' pivot floors, in em_finalize's names
+_GJ_FLOORS = {'auto': 'relative', 'gauss_jordan': 'relative',
+              'pallas_gj': 'flt_min'}
+
+
 def _finalize(S, denom, config: CacgmmConfig):
     """Accumulated (S, den) -> next EM parameters."""
-    D = S.shape[-1]
-    finfo = torch.finfo(torch.float32)
-    total = denom.sum(dim=-1, keepdim=True)
-    weight = torch.where(total > 0, denom / torch.clamp_min(total, finfo.tiny),
-                         torch.zeros_like(denom))
-    log_weight = torch.log(torch.clamp_min(weight, finfo.tiny))
-    # overflow-aware floor: D / tiny is inf in float32, and an empty class
-    # (den == 0, S == 0) must give cov 0 (+ jitter), not 0 * inf = NaN
-    denom_floor = 2.0 * D / finfo.max
-    cov = _trace_normalize(hermitize(
-        S * (D / torch.clamp_min(denom, denom_floor))[..., None, None]
-        .to(S.dtype)))
-    precision, logdet = _invert(cov, config)
-    return log_weight, precision, logdet
+    floor = _GJ_FLOORS.get(config.inverse)
+    if floor is not None:
+        return em_finalize(S, denom, diagonal_floor=config.diagonal_floor,
+                           floor=floor)
+    log_weight, cov = em_covariances(S, denom)
+    return (log_weight, *_invert(cov, config))
 
 
 def _cacgmm_posteriors_fused(Y, initialization, source_activity_mask,

@@ -176,17 +176,22 @@ def test_pallas_gj_posteriors_match_jax_kernel_backend(rng, masked):
 
 
 def test_pallas_gj_inverse_runs_once_per_finalize(rng, monkeypatch):
+    """K3's inverse runs inside the fused finalize (``em_finalize`` with
+    its ``FLT_MIN`` floor), one batched (F, K) launch per E+M pass."""
     Y, act = _problem(rng, F=4, T=100)
     calls = []
-    real = cacgmm.hermitian_inverse_and_logdet_2d
-    monkeypatch.setattr(cacgmm, 'hermitian_inverse_and_logdet_2d',
-                        lambda B: calls.append(B.shape) or real(B))
+    real = cacgmm.em_finalize
+
+    def record(S, den, **kw):
+        calls.append((S.shape, kw['floor']))
+        return real(S, den, **kw)
+    monkeypatch.setattr(cacgmm, 'em_finalize', record)
     got = cacgmm.cacgmm_posteriors(
         torch.from_numpy(Y), torch.from_numpy(act),
         config=cacgmm.CacgmmConfig(iterations=3, iterations_post=2,
                                    inverse='pallas_gj'))
     # one batched (F, K) inverse per E+M pass: 1 + 2 + 1
-    assert calls == [(4, 3, 4, 4)] * 4
+    assert calls == [((4, 3, 4, 4), 'flt_min')] * 4
     assert torch.isfinite(got).all()
 
 

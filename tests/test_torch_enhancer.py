@@ -82,6 +82,32 @@ def test_enhancer_rejects_unported_session_cache(corpus):
                      device_audio_cache=True)
 
 
+def test_factory_keywords_match_jax():
+    """The port's ``get_enhancer`` takes every keyword of the JAX one, in
+    its order, and adds only ``device``; the CLI's config (derived from
+    the signature) holds them all.  The keywords the port accepts unused
+    keep the JAX defaults."""
+    import inspect
+    from pb_chime5_tpu.models.enhancer import get_enhancer as jax_factory
+    port = inspect.signature(get_enhancer).parameters
+    jax_ = inspect.signature(jax_factory).parameters
+    assert list(port) == list(jax_) + ['device']
+    for name in ('compute_dtype', 'cache_window_seconds', 'cache_prefetch'):
+        assert port[name].default == jax_[name].default, name
+    assert set(make_experiment().config) == set(port) | {'session_id'}
+
+
+def test_factory_accepts_the_jax_keywords_at_their_defaults(corpus):
+    enhancer = get_enhancer(database_path=str(corpus), device='cpu',
+                            compute_dtype=np.float32,
+                            cache_window_seconds=180.0, cache_prefetch=True)
+    assert type(enhancer).__name__ == 'Enhancer'
+    for dtype in (np.float64, 'float16'):
+        with pytest.raises(NotImplementedError):
+            get_enhancer(database_path=str(corpus), device='cpu',
+                         compute_dtype=dtype)
+
+
 def test_cuda_device_without_card_raises(corpus):
     if torch.cuda.is_available():
         pytest.skip('a CUDA device is present')

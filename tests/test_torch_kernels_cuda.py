@@ -28,6 +28,18 @@ Tolerances and their reasons:
   on an H100), so the conditioning, which amplifies any difference in
   rounding, does not widen these.  Its largest residual ||B X - I||_F is
   also held to <= 2x the plain version's + 1e-6 against float64.
+* The relative floor mode (``gauss_jordan_inverse_and_logdet``, the plain
+  version ``ops/linalg.py``'s) under the K3 / K4 gates, on HPD and on
+  EM-like input.
+* ``em_finalize`` (the whole EM finalize in one launch) against its plain
+  version on the EM's accumulated state (``em_state``: rank-deficient
+  scatter, an empty class, a tiny den, a silent frequency), in both
+  floor modes: precision within 1e-5 relative Frobenius, logdet within
+  1e-3, log_weight within 1e-6 absolute, and a residual against float64
+  no worse than the plain version's (2x + 1e-6); the kernel sums the
+  trace and the classes' den in one fixed order where PyTorch picks its
+  own, so the jitter may move by an ulp.  The empty class (den = 0,
+  S = 0: B = I + jitter) involves no such sum and is pinned bit for bit.
 * K5 on well-conditioned SPD / HPD input: relative Frobenius error per
   frequency <= 1e-5 against the plain version (the same panels and
   floor; the 32-wide products summed in other orders) and <= 1e-4
@@ -54,11 +66,20 @@ EM_LOGDET_ATOL = 1e-3
 SOLVE_RTOL = 1e-5
 SOLVE_F64_RTOL = 1e-4
 
+LOG_WEIGHT_ATOL = 1e-6
+DIAGONAL_FLOOR = 1e-6   # CacgmmConfig's default
+
 GJ_ENTRIES = {
     'k3': (gj_inverse.hermitian_inverse_and_logdet_2d,
            gj_inverse.hermitian_inverse_and_logdet_2d_reference),
     'k4': (gj_inverse.hermitian_inverse_and_logdet,
            gj_inverse.hermitian_inverse_and_logdet_reference),
+}
+# every floor mode of the kernel's inverse-only entries
+GJ_MODES = {
+    **GJ_ENTRIES,
+    'relative': (gj_inverse.gauss_jordan_inverse_and_logdet,
+                 linalg.gauss_jordan_inverse_and_logdet),
 }
 
 
@@ -118,6 +139,42 @@ def em_like_batch(F, K, D, *, seed=0, device='cpu'):
     cov = cacgmm._trace_normalize(hermitize(
         torch.as_tensor(S.astype(np.complex64))))
     return cacgmm.add_jitter(cov, 1e-6).to(device).contiguous()
+
+
+def em_state(F, K, D, *, frames=None, seed=0, device='cpu'):
+    """(S (F, K, D, D) complex64, den (F, K) float32) as the fused E+M
+    kernel hands them to the finalize: ``S_k = sum_t g_kt z_t z_t^H`` over
+    unit-norm z and ``den_k = sum_t g_kt``.  ``frames`` frames a class
+    (default: D, of which a random 1 .. D - 1 carry weight, so only the
+    jitter makes the covariance invertible).  Frequency 0 is silent (every
+    class den = 0, S = 0), frequency 1's last class is empty, frequency
+    2's first class has a tiny den (1e-30, its S scaled alike)."""
+    rng = np.random.default_rng(seed)
+    n = frames or D
+    z = rng.standard_normal((F, K, n, D)) \
+        + 1j * rng.standard_normal((F, K, n, D))
+    z /= np.linalg.norm(z, axis=-1, keepdims=True)
+    g = rng.uniform(0.05, 1.0, (F, K, n))
+    if frames is None:
+        g = g * (np.arange(n) < rng.integers(1, max(D, 2), (F, K, 1)))
+    S = np.einsum('fkt,fktd,fkte->fkde', g, z, z.conj())
+    den = g.sum(-1)
+    S[0], den[0] = 0, 0
+    if F > 1:
+        S[1, -1], den[1, -1] = 0, 0
+    if F > 2:
+        S[2, 0] *= 1e-30 / den[2, 0]
+        den[2, 0] = 1e-30
+    return (torch.as_tensor(S.astype(np.complex64), device=device),
+            torch.as_tensor(den.astype(np.float32), device=device))
+
+
+def finalize_errors(out, ref):
+    """Largest per-matrix relative Frobenius error of the precision,
+    largest absolute logdet and log_weight errors; out and ref are
+    (log_weight, precision, logdet)."""
+    rel, dld, _ = inverse_errors(out[1], out[2], ref[1], ref[2])
+    return rel, dld, float((out[0] - ref[0]).abs().max())
 
 
 def inverse_errors(inv, ld, inv_ref, ld_ref):
@@ -320,6 +377,135 @@ def test_gj_rejects_unsupported_inputs(cuda):
             with pytest.raises(ValueError):
                 kernel(B)
     assert before == {k: e.launches for k, (e, _) in GJ_ENTRIES.items()}
+
+
+WIDTHS = [1, 4, 17, 24, 32]
+
+
+@pytest.mark.parametrize('mode', sorted(GJ_MODES))
+@pytest.mark.parametrize('K', [1, 5])
+@pytest.mark.parametrize('D', WIDTHS)
+def test_gj_modes_at_every_width(cuda, mode, K, D):
+    kernel, reference = GJ_MODES[mode]
+    B = random_hpd((9, K), D, seed=D + K, device=cuda)
+    before = kernel.launches
+    inv, ld = kernel(B)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    assert torch.isfinite(inv).all() and torch.isfinite(ld).all()
+    rel, dld, _ = inverse_errors(inv, ld, *reference(B))
+    assert rel <= INV_RTOL and dld <= LOGDET_ATOL, (rel, dld)
+
+
+def test_relative_gj_on_em_like_batch(cuda):
+    B = em_like_batch(513, 5, 24, seed=9, device=cuda)
+    inv, ld = gj_inverse.gauss_jordan_inverse_and_logdet(B)
+    inv_ref, ld_ref = linalg.gauss_jordan_inverse_and_logdet(B)
+    assert torch.isfinite(inv).all() and torch.isfinite(ld).all()
+    rel, dld, _ = inverse_errors(inv, ld, inv_ref, ld_ref)
+    assert rel <= INV_RTOL and dld <= EM_LOGDET_ATOL, (rel, dld)
+    res, _ = against_float64(B, inv, ld)
+    res_ref, _ = against_float64(B, inv_ref, ld_ref)
+    assert res <= 2 * res_ref + 1e-6, (res, res_ref)
+
+
+def finalized_covariances(S, den):
+    """The covariances the finalize inverts: trace-normalized, jittered."""
+    return gj_inverse.add_jitter(gj_inverse.em_covariances(S, den)[1],
+                                 DIAGONAL_FLOOR)
+
+
+# K = MAX_K at D = 32 needs 66 KB of shared memory a CTA, above the 48 KB
+# that a launch gets without the kernel's opt-in
+@pytest.mark.parametrize('floor', sorted(gj_inverse.FLOORS))
+@pytest.mark.parametrize('K', [1, 5, gj_inverse.MAX_K])
+@pytest.mark.parametrize('D', WIDTHS)
+def test_em_finalize_at_every_width(cuda, floor, K, D):
+    S, den = em_state(9, K, D, seed=D + 10 * K, device=cuda)
+    before = gj_inverse.em_finalize.launches
+    out = gj_inverse.em_finalize(S, den, diagonal_floor=DIAGONAL_FLOOR,
+                                 floor=floor)
+    torch.cuda.synchronize()
+    assert gj_inverse.em_finalize.launches == before + 1
+    assert all(torch.isfinite(x).all() for x in out)
+    ref = gj_inverse.em_finalize_reference(
+        S, den, diagonal_floor=DIAGONAL_FLOOR, floor=floor)
+    rel, dld, dlw = finalize_errors(out, ref)
+    assert rel <= INV_RTOL and dld <= EM_LOGDET_ATOL \
+        and dlw <= LOG_WEIGHT_ATOL, (rel, dld, dlw)
+    B = finalized_covariances(S, den)
+    res, _ = against_float64(B, out[1], out[2])
+    res_ref, _ = against_float64(B, ref[1], ref[2])
+    assert res <= 2 * res_ref + 1e-6, (res, res_ref)
+
+
+@pytest.mark.parametrize('floor', sorted(gj_inverse.FLOORS))
+def test_em_finalize_is_deterministic_and_batch_independent(cuda, floor):
+    """Bit for bit: two runs, and one frequency alone against the same
+    frequency inside the headline batch (no sum crosses matrices)."""
+    S, den = em_state(513, 5, 24, seed=3, device=cuda)
+
+    def run(S, den):
+        return gj_inverse.em_finalize(S, den, diagonal_floor=DIAGONAL_FLOOR,
+                                      floor=floor)
+    first, second = run(S, den), run(S, den)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    for f in (0, 1, 2, 300, 512):
+        alone = run(S[f:f + 1].contiguous(), den[f:f + 1].contiguous())
+        assert all(torch.equal(a, b[f:f + 1]) for a, b in zip(alone, first))
+
+
+@pytest.mark.parametrize('mode', sorted(GJ_MODES))
+def test_gj_modes_are_deterministic_and_batch_independent(cuda, mode):
+    kernel, _ = GJ_MODES[mode]
+    B = em_like_batch(64, 5, 24, seed=4, device=cuda)
+    inv, ld = kernel(B)
+    inv2, ld2 = kernel(B)
+    assert torch.equal(inv, inv2) and torch.equal(ld, ld2)
+    one, ld1 = kernel(B[17:18].contiguous())
+    assert torch.equal(one, inv[17:18]) and torch.equal(ld1, ld[17:18])
+
+
+@pytest.mark.parametrize('floor', sorted(gj_inverse.FLOORS))
+def test_em_finalize_empty_class_bit_pin(cuda, floor):
+    """den = 0 and S = 0: log_weight = log(FLT_MIN) and the inverse of
+    B = I + jitter, bit for bit the plain version's on the card; a silent
+    frequency (every class empty) stays finite."""
+    K, D = 5, 24
+    S, den = em_state(4, K, D, seed=5, device=cuda)
+    out = gj_inverse.em_finalize(S, den, diagonal_floor=DIAGONAL_FLOOR,
+                                 floor=floor)
+    ref = gj_inverse.em_finalize_reference(
+        S, den, diagonal_floor=DIAGONAL_FLOOR, floor=floor)
+    tiny = torch.finfo(torch.float32).tiny
+    for f, k in [(1, K - 1)] + [(0, k) for k in range(K)]:
+        for a, b in zip(out, ref):
+            assert torch.equal(a[f, k], b[f, k]), (f, k)
+        assert float(out[0][f, k]) == float(np.log(np.float32(tiny)))
+    assert all(torch.isfinite(x[0]).all() for x in out)
+    eye = torch.eye(D, dtype=S.dtype, device=cuda)
+    torch.testing.assert_close(out[1][1, K - 1], eye / (1 + DIAGONAL_FLOOR),
+                               rtol=1e-6, atol=0)
+
+
+def test_em_finalize_rejects_unsupported_inputs(cuda):
+    S, den = em_state(3, 2, 4, seed=6, device=cuda)
+    before = gj_inverse.em_finalize.launches
+    bad = [(S.to(torch.complex128), den), (S, den.double()),
+           (S, den[:, :1].contiguous()), (S, den.cpu()),
+           (S.transpose(-2, -1), den), (S[:, :, :3], den),
+           (torch.zeros((1, 9, 4, 4), dtype=S.dtype, device=cuda),
+            torch.zeros((1, 9), device=cuda)),
+           (torch.zeros((1, 1, 33, 33), dtype=S.dtype, device=cuda),
+            torch.zeros((1, 1), device=cuda))]
+    for S_bad, den_bad in bad:
+        with pytest.raises(ValueError):
+            gj_inverse.em_finalize(S_bad, den_bad,
+                                   diagonal_floor=DIAGONAL_FLOOR)
+    with pytest.raises(ValueError):
+        gj_inverse.em_finalize(S, den, diagonal_floor=DIAGONAL_FLOOR,
+                               floor='flushed_log')
+    assert gj_inverse.em_finalize.launches == before
 
 
 def negative_pivot_matrix(D=6, seed=0):
