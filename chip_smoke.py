@@ -23,17 +23,21 @@ Phases (the first failure ends the run with a non-zero exit code):
    (513, 5, 24, 24) batch and its whole-finalize entry ``em_finalize`` in
    both floor modes on the EM's accumulated S and den, eager and from a
    CUDA graph, beside the plain finalize, K5 the
-   blocked Cholesky solve on 513 WPE-sized systems (240 x 240 complex as
-   a 512 x 512 real block, 24 right-hand sides) beside ``cholesky_ex`` +
-   ``cholesky_solve`` on the same complex system, then the WPE solve's
-   slot (``hermitian_solve_pallas`` vs the port's cuSOLVER
-   ``hermitian_solve``, each from the raw system) and K5's device time
-   from a CUDA graph;
+   blocked Cholesky solve on 513 WPE-sized systems (240 x 240 complex,
+   24 right-hand sides): its complex instantiation
+   ``hermitian_solve_chol`` (the WPE solve, from the raw system, with and
+   without ``refine``, and its relative-floor pin) and its real one on
+   the 512 x 512 real block (``hermitian_solve_pallas``,
+   ``chol_solve_real_spd``, the FLT_MIN pin), timed in turns beside the
+   plain version, ``cholesky_ex`` + ``cholesky_solve`` on the
+   equilibrated system, the port's cuSOLVER ``hermitian_solve`` and the
+   real-form wrapper, and their device times from CUDA graphs;
 4. default path: a synthetic 6-array x 4-mic PCM16 CHiME-5 session -> DB
    JSON -> the port's CLI ``test_run`` (2 utterances, default
    ``GssConfig``, K = 5 with the garbage class) on the card; the fused
    kernel must carry every E+M pass and ``em_finalize`` every finalize
-   (20 each per utterance), the Gauss-Jordan kernel the MVDR solve (1);
+   (20 each per utterance), the Gauss-Jordan kernel the MVDR solve (1),
+   ``hermitian_solve_chol`` every WPE solve (3);
    the WAVs must be
    finite, non-silent and of the utterance's length; per-stage and
    per-utterance times; on a small two-speaker scene the card must agree
@@ -42,7 +46,8 @@ Phases (the first failure ends the run with a non-zero exit code):
 5. all-Pallas path: the session ``Enhancer`` with ``GssConfig(
    bss_em_backend='pallas', bss_inverse='pallas_gj', wpe_stats_backend=
    'pallas')`` on the ~40 s utterance, warm: 20 K1, 20 ``em_finalize``
-   (K3's floor), 3 K2 launches and the MVDR solve's 1, a finite non-silent
+   (K3's floor), 3 K2 launches, 3 WPE solves and the MVDR solve's 1, a
+   finite non-silent
    WAV of the utterance's length, its stage
    times beside the default path's; the small scene card vs CPU again;
 6. P06's EM state and WPE systems: K1's inputs at the first masked E+M
@@ -58,14 +63,16 @@ Phases (the first failure ends the run with a non-zero exit code):
    a float64 residual at the EM-like batch's gates) and its times; the
    first WPE iteration's R and P of the ~40 s utterance
    by K2 and by its plain version (R and P <= 1e-5 per frequency, both
-   timed in turns), solved by K5, its plain version and the port's
-   ``hermitian_solve`` (cuSOLVER); per-frequency residuals of the loaded,
-   equilibrated system in float64 and the pairwise differences of G; K5's
-   largest residual must be <= 2x its plain version's + 1e-6;
+   timed in turns), solved by both K5 instantiations, their plain
+   versions and the port's ``hermitian_solve`` (cuSOLVER); per-frequency
+   residuals of the loaded, equilibrated system in float64 and the
+   pairwise differences of G; each instantiation's largest residual must
+   be <= 2x its plain version's + 1e-6;
 7. options path: the session ``Enhancer`` on P06, warm, once for each of
    ``bf='gev_ban'``, ``bf='lcmv'``, the WPE options (``psd_context=1,
    chunk_size=512, solve_refine=1``), ``bss_inverse='cholesky'`` and
-   ``'eigh'``: 20 K1 launches, 20 ``em_finalize`` where the option keeps
+   ``'eigh'``: 20 K1 launches, 3 WPE solves, 20 ``em_finalize`` where the
+   option keeps
    the Gauss-Jordan EM inverse, the MVDR solve's 1 where it beamforms with
    MVDR, and no other kernel, a finite non-silent WAV
    of the utterance's length, wall and stage times; on the small scene
@@ -81,9 +88,11 @@ kernel tests' input makers, never JAX or the JAX package
 
 The last three lines of standard output are the card's name and power
 limit, the kernels' JSON record and ``{"ok": true, "device": {...}}``.
-The record has one row per TPU kernel, its top-level numbers those of the
-TPU kernel's own function; K3's and K4's rows list the Gauss-Jordan
-kernel's other entries under ``entries``.
+The record has one row per TPU kernel; K3's and K4's rows list the
+Gauss-Jordan kernel's other entries under ``entries``; K5's row is its
+entry at the WPE solve (``hermitian_solve_chol``), with the TPU kernel's
+own function (``chol_solve_real_spd``) and its real-form wrapper under
+``entries``.
 """
 
 import dataclasses
@@ -468,84 +477,142 @@ def finalize_vs_plain(torch, gj_inverse):
 
 def k5_vs_plain(torch, chol_solve):
     """K5 at the WPE headline: 513 well-conditioned HPD systems of
-    240 x 240 with 24 right-hand sides, through ``hermitian_solve_pallas``
-    (against its plain version and a float64 solve of the same loaded
-    system) and the zero-pivot floor pin; then ``chol_solve_real_spd`` on
-    the real block form timed beside its plain version and cuSOLVER's
-    ``cholesky_ex`` + ``cholesky_solve`` on the complex system."""
+    240 x 240 with 24 right-hand sides.  The complex instantiation
+    ``hermitian_solve_chol`` (the WPE solve of every path) against its
+    plain version and a float64 solve of the same loaded system, with and
+    without ``refine``, and its relative-floor pin; the real
+    instantiation through ``hermitian_solve_pallas`` likewise, and its
+    FLT_MIN pin.  Then the times in turns: the complex entry beside its
+    plain version, cuSOLVER's ``cholesky_ex`` + ``cholesky_solve`` on the
+    equilibrated system, the port's ``linalg.hermitian_solve`` and the
+    real-form wrapper ``hermitian_solve_pallas`` (each from the raw
+    system); ``chol_solve_real_spd`` on the real block form beside its
+    plain version; device times from CUDA graphs."""
     from pb_chime5_tpu_torch.ops import linalg
     from tests.test_torch_kernels_cuda import (
         frobenius_errors, hpd_system, solve_error_f64)
     F, D, E = HEADLINE[0], WPE_TAPS * HEADLINE[2], HEADLINE[2]
     A, B = hpd_system(F, D, E, seed=14, device='cuda')
-    entry = chol_solve.hermitian_solve_pallas
-    before = entry.launches
-    X = entry(A, B, relative_load=WPE_LOAD)
-    torch.cuda.synchronize()
-    check(entry.launches == before + 1, 'K5 did not count its launch')
-    check(bool(torch.isfinite(X).all()), 'K5 output is not finite')
-    ref = chol_solve.hermitian_solve_pallas_reference(
-        A, B, relative_load=WPE_LOAD)
-    rel = frobenius_errors(X, ref)
-    rel64 = solve_error_f64(X, A, B, WPE_LOAD)
-    rel64_ref = solve_error_f64(ref, A, B, WPE_LOAD)
-    max_abs = float((X - ref).abs().max())
-    print(f'hermitian_solve_pallas: vs plain {rel:.3e} (<= {SOLVE_RTOL}), '
-          f'vs float64 {rel64:.3e} (<= {SOLVE_F64_RTOL}; plain '
-          f'{rel64_ref:.3e}), max_abs {max_abs:.3e}', flush=True)
-    check(rel <= SOLVE_RTOL, 'K5 disagrees with its plain version')
-    check(rel64 <= SOLVE_F64_RTOL, 'K5 disagrees with a float64 solve')
+    max_abs = {}
+    for name, reference, kw in (
+            ('hermitian_solve_chol', 'hermitian_solve_chol_reference',
+             dict(refine=0)),
+            ('hermitian_solve_chol', 'hermitian_solve_chol_reference',
+             dict(refine=1)),
+            ('hermitian_solve_pallas', 'hermitian_solve_pallas_reference',
+             {})):
+        entry = getattr(chol_solve, name)
+        before = entry.launches
+        X = entry(A, B, relative_load=WPE_LOAD, **kw)
+        torch.cuda.synchronize()
+        check(entry.launches == before + 1, f'{name} did not count its launch')
+        check(bool(torch.isfinite(X).all()), f'{name}: output is not finite')
+        ref = getattr(chol_solve, reference)(A, B, relative_load=WPE_LOAD,
+                                             **kw)
+        rel = frobenius_errors(X, ref)
+        X64 = linalg.hermitian_solve(
+            A.to(torch.complex128), B.to(torch.complex128),
+            relative_load=WPE_LOAD, **kw)
+        rel64 = frobenius_errors(X.to(torch.complex128), X64)
+        rel64_ref = frobenius_errors(ref.to(torch.complex128), X64)
+        max_abs.setdefault(name, float((X - ref).abs().max()))
+        print(f'{name} {kw}: vs plain {rel:.3e} (<= {SOLVE_RTOL}), vs '
+              f'float64 {rel64:.3e} (<= {SOLVE_F64_RTOL}; plain '
+              f'{rel64_ref:.3e}), max_abs {float((X - ref).abs().max()):.3e}'
+              f', bit-equal to plain: {bool(torch.equal(X, ref))}',
+              flush=True)
+        check(rel <= SOLVE_RTOL, f'{name} disagrees with its plain version')
+        check(rel64 <= SOLVE_F64_RTOL,
+              f'{name} disagrees with a float64 solve')
+        del X, ref, X64
+    # the two floors on a zero pivot: FLT_MIN (real), eps^2 max(diag) with
+    # the padding's ones counted (complex; row 3 scaled by 1 / sqrt(eps))
     pin = torch.eye(64, device='cuda')[None].contiguous()
     pin[0, 5, 5] = 0
     rhs = torch.zeros((1, 64, 3), device='cuda')
     rhs[0, 5, 0] = 1
     x_pin = float(chol_solve.chol_solve_real_spd(pin, rhs)[0, 5, 0])
-    print(f'zero pivot: X[5, 0] = {x_pin:.7e} (1 / FLT_MIN = '
-          f'{1 / torch.finfo(torch.float32).tiny:.7e})', flush=True)
+    eps = torch.finfo(torch.float32).eps
+    cpin = torch.eye(40, dtype=torch.complex64, device='cuda')[None]
+    cpin[0, 3, 3] = 0
+    crhs = torch.zeros((1, 40, 1), dtype=torch.complex64, device='cuda')
+    crhs[0, 3, 0] = 1e-20
+    c_pin = float(chol_solve.hermitian_solve_chol(
+        cpin.contiguous(), crhs, relative_load=0)[0, 3, 0].real)
+    print(f'zero pivot: real X[5, 0] = {x_pin:.7e} (1 / FLT_MIN = '
+          f'{1 / torch.finfo(torch.float32).tiny:.7e}); complex X[3, 0] = '
+          f'{c_pin:.7e} (1e-20 / eps^3 = {1e-20 / eps ** 3:.7e})', flush=True)
     check(x_pin == 1 / torch.finfo(torch.float32).tiny,
           'K5 does not floor a zero pivot at FLT_MIN')
-    del X, ref
+    check(abs(c_pin / (1e-20 / eps ** 3) - 1) <= 1e-5,
+          'hermitian_solve_chol does not floor a zero pivot at '
+          'eps^2 max(diag)')
     _, As, Bs, _ = linalg.equilibrate(A, B, WPE_LOAD)
-    A2, B2 = chol_solve.real_block_form(As, Bs)
 
     def library():
         L, _ = torch.linalg.cholesky_ex(As)
         return torch.cholesky_solve(Bs, L)
+    # the complex Hermitian Cholesky (4 D^3 / 3) and two substitutions
+    # (8 D^2 E); R's lower triangle, P and G moved once
+    flops = F * (4 * D ** 3 / 3 + 8 * D * D * E)
+    t_bytes = F * (D * (D + 1) // 2 + 2 * D * E) * 8 / HBM_BYTES_PER_S * 1e3
+    bound_ms, bound_by = bound(F * (D * (D + 1) // 2 + 2 * D * E) * 8, flops)
+    print(f'K5 bound at F, d, E = ({F}, {D}, {E}): {flops / 1e9:.2f} GFLOP '
+          f'over 67 TFLOP/s = {flops / FP32_FLOP_PER_S * 1e3:.4f} ms; R\'s '
+          f'lower triangle, P and G over 3.35 TB/s = {t_bytes:.4f} ms: '
+          f'{bound_by} bind', flush=True)
     t = in_turns(torch, {
+        'plain': (lambda: chol_solve.hermitian_solve_chol_reference(
+            A, B, relative_load=WPE_LOAD), 1),
+        'kernel': (lambda: chol_solve.hermitian_solve_chol(
+            A, B, relative_load=WPE_LOAD), 5),
+        'library': (library, 3),
+        'hermitian_solve': (lambda: linalg.hermitian_solve(
+            A, B, relative_load=WPE_LOAD), 3),
+        'hermitian_solve_pallas': (lambda: chol_solve.hermitian_solve_pallas(
+            A, B, relative_load=WPE_LOAD), 3)})
+    print_times(f'hermitian_solve_chol at F,d,E=({F}, {D}, {E}), raw R, P '
+                f'-> G (library: cholesky_ex + cholesky_solve on the '
+                f'equilibrated system)', t, bound_ms, bound_by)
+    print(f'WPE solve slot, A, B -> X: hermitian_solve_chol '
+          f'{t["kernel"]:.4f} ms, hermitian_solve (cuSOLVER) '
+          f'{t["hermitian_solve"]:.4f} ms, hermitian_solve_pallas (real '
+          f'block form) {t["hermitian_solve_pallas"]:.4f} ms', flush=True)
+    A2, B2 = chol_solve.real_block_form(As, Bs)
+    t_real = in_turns(torch, {
         'plain': (lambda: chol_solve.chol_solve_real_spd_reference(A2, B2),
                   1),
         'kernel': (lambda: chol_solve.chol_solve_real_spd(A2, B2), 5),
         'library': (library, 3)})
-    # the complex Hermitian Cholesky (4 D^3 / 3) and two substitutions
-    # (8 D^2 E); R's lower triangle, P and G moved once
-    flops = F * (4 * D ** 3 / 3 + 8 * D * D * E)
-    bound_ms, bound_by = bound(F * (D * (D + 1) // 2 + 2 * D * E) * 8, flops)
     print_times(f'chol_solve_real_spd at F,S,E=({F}, {A2.shape[1]}, {E}) '
-                f'(complex D={D})', t, bound_ms, bound_by)
-    # the WPE solve's slot: each entry from the raw A, B, its conditioning
-    # (and, for K5, the real block form and the work copy) included
-    solves = {
-        'hermitian_solve_pallas': lambda: chol_solve.hermitian_solve_pallas(
-            A, B, relative_load=WPE_LOAD),
-        'hermitian_solve': lambda: linalg.hermitian_solve(
-            A, B, relative_load=WPE_LOAD)}
-    slot = in_turns(torch, {'hermitian_solve_pallas': (
-        solves['hermitian_solve_pallas'], 5), 'hermitian_solve': (
-            solves['hermitian_solve'], 3)})
-    print(f'WPE solve slot, A, B -> X: hermitian_solve_pallas (K5) '
-          f'{slot["hermitian_solve_pallas"]:.4f} ms, hermitian_solve '
-          f'(cuSOLVER) {slot["hermitian_solve"]:.4f} ms', flush=True)
+                f'(complex D={D})', t_real, bound_ms, bound_by)
     # device time alone (hermitian_solve syncs on its factorization's
     # status, so it has no graph)
-    kernel_ms = graph_ms(
-        torch, lambda: chol_solve.chol_solve_real_spd(A2, B2), 5)
-    print(f'chol_solve device time from a CUDA graph: kernel '
-          f'{kernel_ms:.4f} ms, hermitian_solve_pallas '
-          f'{graph_ms(torch, solves["hermitian_solve_pallas"], 5):.4f} ms',
-          flush=True)
-    return dict(max_abs_err=max_abs, ms=t['kernel'], plain_ms=t['plain'],
-                library_ms=t['library'], bound_ms=bound_ms,
-                bound_by=bound_by)
+    device = {name: graph_ms(torch, fn, 5) for name, fn in (
+        ('hermitian_solve_chol', lambda: chol_solve.hermitian_solve_chol(
+            A, B, relative_load=WPE_LOAD)),
+        ('chol_solve_real_spd',
+         lambda: chol_solve.chol_solve_real_spd(A2, B2)),
+        ('hermitian_solve_pallas', lambda: chol_solve.hermitian_solve_pallas(
+            A, B, relative_load=WPE_LOAD)))}
+    print('K5 device time from a CUDA graph: ' + ', '.join(
+        f'{name} {ms:.4f} ms' for name, ms in device.items()), flush=True)
+    numbers = dict(bound_ms=bound_ms, bound_by=bound_by)
+    return {
+        'hermitian_solve_chol': dict(
+            max_abs_err=max_abs['hermitian_solve_chol'], ms=t['kernel'],
+            plain_ms=t['plain'], library_ms=t['library'],
+            device_ms=device['hermitian_solve_chol'], **numbers),
+        'chol_solve_real_spd': dict(
+            max_abs_err=max_abs['hermitian_solve_pallas'],
+            ms=t_real['kernel'], plain_ms=t_real['plain'],
+            library_ms=t_real['library'],
+            device_ms=device['chol_solve_real_spd'], **numbers),
+        'hermitian_solve_pallas': dict(
+            max_abs_err=max_abs['hermitian_solve_pallas'],
+            ms=t['hermitian_solve_pallas'], plain_ms=None,
+            library_ms=t['hermitian_solve'],
+            device_ms=device['hermitian_solve_pallas'], **numbers)}
 
 
 def make_corpus(root):
@@ -703,11 +770,12 @@ def default_path(torch, counts, work):
     expected = {**dict.fromkeys(launches, 0),
                 'fused_em_scatter': EM_PASSES * len(wavs),
                 'em_finalize': EM_PASSES * len(wavs),
-                'gauss_jordan_inverse_and_logdet': MVDR_SOLVES * len(wavs)}
+                'gauss_jordan_inverse_and_logdet': MVDR_SOLVES * len(wavs),
+                'hermitian_solve_chol': WPE_ITERATIONS * len(wavs)}
     check(launches == expected,
           f'default path launches {launches}, expected {expected} '
-          f'({EM_PASSES} fused E+M passes and finalizes and {MVDR_SOLVES} '
-          f'MVDR solve per utterance)')
+          f'({EM_PASSES} fused E+M passes and finalizes, {MVDR_SOLVES} '
+          f'MVDR solve and {WPE_ITERATIONS} WPE solves per utterance)')
     check(not imported_jax(), 'the port imported jax or the JAX package')
 
     enhancer = get_enhancer(multiarray=True, database_path=str(db),
@@ -770,7 +838,8 @@ def all_pallas_path(torch, counts, enhancer, examples):
                 'fused_em_scatter': EM_PASSES,
                 'em_finalize': EM_PASSES,
                 'gauss_jordan_inverse_and_logdet': MVDR_SOLVES,
-                'wpe_statistics': WPE_ITERATIONS}
+                'wpe_statistics': WPE_ITERATIONS,
+                'hermitian_solve_chol': WPE_ITERATIONS}
     check(launches == expected,
           f'all-Pallas launches {launches}, expected {expected}')
     check_wav(ex, x)
@@ -938,9 +1007,10 @@ def wpe_systems(torch, chol_solve, wpe_stats, enhancer, examples):
     """Phase 6: the first WPE iteration's statistics of the longest
     utterance (R (513, 240, 240), P (513, 240, 24) of its STFT, as
     ``ops/wpe.py`` builds them) by K2 and by its plain version, held to
-    each other and timed in turns; the plain version's R and P solved by
-    K5, its plain version and the port's cuSOLVER ``hermitian_solve`` at
-    the WPE load."""
+    each other and timed in turns; the plain version's R and P solved at
+    the WPE load by both K5 instantiations (``hermitian_solve_chol``, the
+    path's solve, and the real-form ``hermitian_solve_pallas``), each
+    one's plain version and the port's cuSOLVER ``hermitian_solve``."""
     import numpy as np
     from pb_chime5_tpu_torch.models import gss
     from pb_chime5_tpu_torch.models.gss import GssConfig
@@ -982,6 +1052,8 @@ def wpe_systems(torch, chol_solve, wpe_stats, enhancer, examples):
     del Y_tilde
     R = linalg.hermitize(R)
     solvers = {
+        'chol': chol_solve.hermitian_solve_chol,
+        'chol_plain': chol_solve.hermitian_solve_chol_reference,
         'k5': chol_solve.hermitian_solve_pallas,
         'plain': chol_solve.hermitian_solve_pallas_reference,
         'cusolver': linalg.hermitian_solve}
@@ -1006,11 +1078,17 @@ def wpe_systems(torch, chol_solve, wpe_stats, enhancer, examples):
         res[name] = float(r.max())
         print(f'  {name}: residual ||R_s G - P_s|| / ||P_s|| median '
               f'{np.median(r):.3e}, max {r.max():.3e}', flush=True)
-    for a, b in (('k5', 'plain'), ('k5', 'cusolver'), ('plain', 'cusolver')):
+    print(f'  hermitian_solve_chol bit-equal to its plain version: '
+          f'{bool(torch.equal(G["chol"], G["chol_plain"]))}', flush=True)
+    for a, b in (('chol', 'chol_plain'), ('chol', 'cusolver'),
+                 ('k5', 'plain'), ('k5', 'cusolver'), ('plain', 'cusolver')):
         d = (torch.linalg.matrix_norm(G[a] - G[b])
              / torch.linalg.matrix_norm(G[b])).cpu().numpy()
         print(f'  |G_{a} - G_{b}| / |G_{b}|: median {np.median(d):.3e}, '
               f'max {d.max():.3e}', flush=True)
+    check(res['chol'] <= 2 * res['chol_plain'] + 1e-6,
+          'hermitian_solve_chol has a larger residual than its plain version '
+          'on P06')
     check(res['k5'] <= 2 * res['plain'] + 1e-6,
           'K5 has a larger residual than its plain version on P06')
     check(not imported_jax(), 'the run imported jax or the JAX package')
@@ -1024,7 +1102,8 @@ OPTIONS = {           # phase 7 on P06: GssConfig fields of each option
     'cholesky': dict(bss_inverse='cholesky'),
     'eigh': dict(bss_inverse='eigh'),
 }
-# their kernel launches per utterance beside K1's 20: em_finalize where the
+# their kernel launches per utterance beside K1's 20 and the WPE solve's 3
+# (every option runs WPE): em_finalize where the
 # EM inverse stays Gauss-Jordan, the complex64 MVDR solve where the
 # beamformer is MVDR (GEV and LCMV solve in float64, on the plain version)
 OPTION_LAUNCHES = {
@@ -1081,7 +1160,9 @@ def options_path(torch, counts, enhancer, examples):
         wall = time.perf_counter() - start
         launches = counts.read()
         expected = {**dict.fromkeys(launches, 0),
-                    'fused_em_scatter': EM_PASSES, **OPTION_LAUNCHES[name]}
+                    'fused_em_scatter': EM_PASSES,
+                    'hermitian_solve_chol': WPE_ITERATIONS,
+                    **OPTION_LAUNCHES[name]}
         print(f'option {name} launches: {launches}', flush=True)
         check(launches == expected,
               f'option {name}: launches {launches}, expected {expected}')
@@ -1124,6 +1205,7 @@ class LaunchCounts:
                         gj_inverse.gauss_jordan_inverse_and_logdet,
                         gj_inverse.hermitian_inverse_and_logdet_2d,
                         gj_inverse.hermitian_inverse_and_logdet,
+                        chol_solve.hermitian_solve_chol,
                         chol_solve.chol_solve_real_spd,
                         chol_solve.hermitian_solve_pallas)
 
@@ -1191,7 +1273,7 @@ def main():
     results = {'fused_em_scatter': k1_vs_plain(torch, fused_em),
                'wpe_statistics': k2_vs_plain(torch, wpe_stats),
                **gj_vs_plain(torch, gj_inverse),
-               'chol_solve_real_spd': k5_vs_plain(torch, chol_solve)}
+               **k5_vs_plain(torch, chol_solve)}
     torch.cuda.empty_cache()
 
     counts = LaunchCounts(fused_em, wpe_stats, gj_inverse, chol_solve)
@@ -1260,10 +1342,19 @@ def main():
                 'gauss_jordan_inverse_and_logdet',
                 default_launches['gauss_jordan_inverse_and_logdet'],
                 'default')}),
-        # an entry point only: no GssConfig reaches it
-        row('chol_solve_real_spd', 'chol_solve.cu', 'chol_solve.py:50',
-            default_launches['chol_solve_real_spd'],
-            results['chol_solve_real_spd'], on_main_path=False),
+        # K5's row at its call site, the WPE solve: the complex
+        # instantiation; the TPU kernel's own function (the real
+        # instantiation) and its real-form wrapper under `entries`
+        row('hermitian_solve_chol', 'chol_solve.cu', 'chol_solve.py:50',
+            default_launches['hermitian_solve_chol'],
+            results['hermitian_solve_chol'], path='default',
+            entries={
+                'chol_solve_real_spd': entry(
+                    'chol_solve_real_spd',
+                    default_launches['chol_solve_real_spd'], 'none'),
+                'hermitian_solve_pallas': entry(
+                    'hermitian_solve_pallas',
+                    default_launches['hermitian_solve_pallas'], 'none')}),
     ]
     print(card, flush=True)
     print(json.dumps({'kernels': kernels}), flush=True)

@@ -9,13 +9,14 @@
   recursive Schur-complement inverses, operation for operation.
 * :func:`hermitian_solve` keeps the JAX equilibration, scale floor,
   diagonal load, ``method`` choices and iterative refinement.  Its
-  ``'chol'`` method (the default above ``d = 32``: the WPE filter solve,
-  d = taps * D = 240) factors with ``torch.linalg.cholesky_ex`` +
-  ``cholesky_solve`` in place of the JAX blocked-Cholesky panels, which
-  exist only because the TPU runtime had no LAPACK-style calls; a failed
-  factorization raises (the JAX panels floor the pivot at ``eps^2 *
-  max(diag)`` instead: ROADMAP.md, Queue 3).  The hand-written Cholesky
-  kernel of the same solve is ``ops/kernels/chol_solve.py``.
+  ``'chol'`` method (the default above ``d = 32``) factors with
+  ``torch.linalg.cholesky_ex`` + ``cholesky_solve`` in place of the JAX
+  blocked-Cholesky panels; a failed factorization raises where the JAX
+  panels floor the pivot at ``eps^2 * max(diag)``.  The WPE filter solve
+  (d = taps * D = 240) does not come here in complex64: it runs the JAX
+  panels, with their floor, in the hand-written Cholesky kernel
+  (``ops/kernels/chol_solve.py::hermitian_solve_chol``, called by
+  ``ops/wpe.py``); complex128 and d > 256 still solve here.
 * :func:`dominant_eigenvector` is the JAX repeated squaring, with the
   largest column picked by indexing (the one-hot reduction was a TPU
   workaround); :func:`stable_cholesky` returns NaN where the
@@ -181,8 +182,9 @@ def schur_inverse_and_logdet(M):
 
 
 def equilibrate(A, B, relative_load=None):
-    """The conditioning of :func:`hermitian_solve` and of the K5 wrapper
-    (``ops/kernels/chol_solve.py``): ``A`` scaled to unit diagonal (the
+    """The conditioning of :func:`hermitian_solve` and of K5's plain
+    versions (``ops/kernels/chol_solve.py``; the kernel runs it in its
+    prologue): ``A`` scaled to unit diagonal (the
     scales floored at ``eps * max(diag)``; an all-zero matrix is not
     scaled) and hermitized, ``relative_load`` (default ``64 * eps``) added
     on that diagonal, ``B``'s rows scaled alike.
@@ -217,7 +219,10 @@ def hermitian_solve(A, B, *, relative_load=None, method=None,
 
     ``method``: ``None`` ('gj' for ``d <= 32``, else 'chol'), 'gj' (the
     Gauss-Jordan inverse), 'block_gj', 'schur' (explicit inverses) or
-    'chol' (cuSOLVER / LAPACK Cholesky; raises where it fails).
+    'chol' (cuSOLVER / LAPACK Cholesky; raises where it fails: the
+    complex64 WPE solve uses the kernel entry
+    ``ops/kernels/chol_solve.py::hermitian_solve_chol`` instead, which
+    floors the pivot as JAX does).
     ``refine > 0`` runs that many iterative-refinement steps: the residual
     against the UNLOADED equilibrated matrix, corrected through the
     factorization (or inverse) of the loaded one.

@@ -17,8 +17,14 @@ Iterative offline WPE batched over frequency:
   (:func:`~pb_chime5_tpu_torch.ops.kernels.wpe_stats.wpe_statistics`),
   then hermitized, as the JAX ``'pallas'`` backend does,
 * filter ``G = R^{-1} P`` by the equilibrated, diagonally loaded
-  :func:`~pb_chime5_tpu_torch.ops.linalg.hermitian_solve`, with
-  ``solve_refine`` iterative-refinement steps against the unloaded R,
+  Hermitian solve with ``solve_refine`` iterative-refinement steps
+  against the unloaded R: for complex64 with ``32 < taps * D <= 256``
+  (the WPE headline, 240) in one launch of the blocked-Cholesky kernel
+  (:func:`~pb_chime5_tpu_torch.ops.kernels.chol_solve.hermitian_solve_chol`,
+  the JAX default ``method='chol'`` with its relative pivot floor; its
+  plain version on the CPU), else
+  :func:`~pb_chime5_tpu_torch.ops.linalg.hermitian_solve` (Gauss-Jordan
+  up to d = 32, cuSOLVER / LAPACK Cholesky above 256 and in complex128),
 * output ``X = Y - G^H Ytilde``.
 
 ``chunk_size`` accumulates R and P over T-chunks of that many frames and
@@ -39,6 +45,8 @@ rejects ``wpe_precision`` other than 'highest'.
 
 import torch
 
+from pb_chime5_tpu_torch.ops.kernels.chol_solve import (
+    hermitian_solve_chol, supports)
 from pb_chime5_tpu_torch.ops.kernels.wpe_stats import (
     wpe_statistics, wpe_statistics_reference)
 from pb_chime5_tpu_torch.ops.linalg import (
@@ -82,10 +90,13 @@ def get_power_inverse(X, psd_context: int = 0, frame_mask=None):
 
 
 def _solve_G(R, P, regularization, refine=0):
-    if regularization:
-        return hermitian_solve(R, P, relative_load=regularization,
-                               refine=refine)
-    return stable_solve(R, P)
+    if not regularization:
+        return stable_solve(R, P)
+    if R.dtype == torch.complex64 and supports(R.shape[-1], P.shape[-1]):
+        return hermitian_solve_chol(R.contiguous(), P.contiguous(),
+                                    relative_load=regularization,
+                                    refine=refine)
+    return hermitian_solve(R, P, relative_load=regularization, refine=refine)
 
 
 def _wpe_iteration(Y, Y_tilde, inv_power, regularization, stats_backend,

@@ -1,5 +1,5 @@
 """P06 end to end, in turns across two trees of the port: the default and
-all-Pallas EM windows, the wall of ``enhance_example``, and the default
+all-Pallas EM and WPE windows, the wall of ``enhance_example``, and the default
 path's kernel launches and device busy time per utterance.
 
     python scripts_dev/bench_p06_turns.py --parent DIR [--rounds N]
@@ -12,7 +12,8 @@ change, change, parent (``N`` times), each building its own kernels.  In
 each, for the default and the all-Pallas configurations, warm: the walls
 of 3 ``enhance_example`` calls of P06 (the longer of the CLI
 ``test_run``'s two utterances) and the stage windows (CUDA events) of 2
-more; then one default call under ``torch.profiler``: its CUDA kernel
+more, of which the EM and WPE windows are summarized (median and range a
+tree); then one default call under ``torch.profiler``: its CUDA kernel
 launches, memory copies and sets, the union of their device intervals
 (busy time) and the span from the first to the last.  Each process
 prints one JSON line; the medians per tree close the run.
@@ -95,6 +96,7 @@ def worker(tree, db):
                 e.enhance_example(ex)
             stages.append({k: round(v, 3) for k, v in times[0].items()})
         result[name] = dict(walls_s=walls, em_ms=[s['em'] for s in stages],
+                            wpe_ms=[s['wpe'] for s in stages],
                             stages=stages)
     result['default_profile'] = profile_call(torch, enhancer, ex)
     print(json.dumps(result), flush=True)
@@ -137,10 +139,11 @@ def main():
     for name, results in runs.items():
         summary = {'tree': name}
         for config in ('default', 'all_pallas'):
-            summary[f'{config}_wall_s'] = statistics.median(
-                w for r in results for w in r[config]['walls_s'])
-            summary[f'{config}_em_ms'] = statistics.median(
-                m for r in results for m in r[config]['em_ms'])
+            for key, field in (('wall_s', 'walls_s'), ('em_ms', 'em_ms'),
+                               ('wpe_ms', 'wpe_ms')):
+                values = [v for r in results for v in r[config][field]]
+                summary[f'{config}_{key}'] = statistics.median(values)
+                summary[f'{config}_{key}_range'] = [min(values), max(values)]
         for key in ('kernels', 'busy_ms', 'span_ms', 'wall_ms'):
             summary[f'default_{key}'] = statistics.median(
                 r['default_profile'][key] for r in results)

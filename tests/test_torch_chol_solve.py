@@ -1,12 +1,19 @@
-"""The blocked Cholesky solve K5 (``chol_solve_real_spd``,
-``hermitian_solve_pallas``) — its plain PyTorch version, which the
-entries run on the CPU — vs the JAX Pallas kernel in interpret mode.
+"""The blocked Cholesky solve K5 — its plain PyTorch versions, which the
+entries run on the CPU — vs the JAX package.
 
-Tolerance: the largest absolute difference over the largest |X| <= 1e-5.
-Both run the same float32 algorithm (the same panels, pivot floor and
-explicit block inverses); they differ in the summation order of the
-32-wide products (measured ~2e-7 at S = 64).  The FLT_MIN floor pin is
-exact: a zero pivot gives ``1 / FLT_MIN`` in both packages.
+* The real instantiation (``chol_solve_real_spd``,
+  ``hermitian_solve_pallas``) vs the JAX Pallas kernel in interpret mode.
+  Tolerance: the largest absolute difference over the largest |X| <=
+  1e-5.  Both run the same float32 algorithm (the same panels, pivot
+  floor and explicit block inverses); they differ in the summation order
+  of the 32-wide products (measured ~2e-7 at S = 64).  The FLT_MIN floor
+  pin is exact: a zero pivot gives ``1 / FLT_MIN`` in both packages.
+* The complex instantiation (``hermitian_solve_chol``, the WPE solve) vs
+  JAX's ``hermitian_solve(..., method='chol')`` (XLA, the JAX default
+  above d = 32): relative Frobenius error per system <= 1e-5 in
+  complex64 (the same panels and relative floor, the products summed in
+  other orders: measured ~2-5e-7) and <= 1e-10 in complex128 (measured
+  ~1e-15), with and without ``refine``.
 """
 
 import numpy as np
@@ -53,6 +60,12 @@ def random_hpd_system(F, D, E, *, seed=0):
 
 def rel_max(got, want):
     return float(np.abs(got - want).max() / np.abs(want).max())
+
+
+def rel_fro(got, want):
+    """Largest relative Frobenius error over the batch."""
+    return float((np.linalg.norm(got - want, axis=(-2, -1))
+                  / np.linalg.norm(want, axis=(-2, -1))).max())
 
 
 @pytest.mark.parametrize('S,pad', [(64, 0), (64, 24)],
@@ -123,11 +136,12 @@ def test_zero_pivot_floor_pin():
 
 
 def test_three_cholesky_floors_on_a_zero_pivot():
-    """The three Cholesky paths on a zero pivot (identity with
-    A[3, 3] = 0, no load): the port's ``hermitian_solve`` (LAPACK /
-    cuSOLVER) raises; K5 floors the pivot absolutely, at FLT_MIN; the JAX
-    ``hermitian_solve`` floors it relative to the matrix, at
-    ``eps^2 max(diag)``.  The equilibration scales row 3 by
+    """The Cholesky paths on a zero pivot (identity with A[3, 3] = 0, no
+    load): the port's ``hermitian_solve`` (LAPACK / cuSOLVER) raises;
+    K5's real instantiation floors the pivot absolutely, at FLT_MIN; the
+    JAX ``hermitian_solve`` and K5's complex instantiation (the port's WPE
+    solve) floor it relative to the matrix, at ``eps^2 max(diag)`` with
+    the padding's ones counted.  The equilibration scales row 3 by
     ``1 / sqrt(eps)`` first (its scale floor), so X[3] = b / eps / floor."""
     from pb_chime5_tpu.ops.linalg import hermitian_solve as jax_solve
     eps = np.finfo(np.float32).eps
@@ -142,10 +156,13 @@ def test_three_cholesky_floors_on_a_zero_pivot():
                                   relative_load=0).numpy()
     Xj = np.asarray(jax_solve(jnp.asarray(A), jnp.asarray(B),
                               relative_load=0))
-    for got, floor in ((X, FLT_MIN), (Xj, eps ** 2)):
+    Xc = k5.hermitian_solve_chol(torch.from_numpy(A), torch.from_numpy(B),
+                                 relative_load=0).numpy()
+    for got, floor in ((X, FLT_MIN), (Xj, eps ** 2), (Xc, eps ** 2)):
         np.testing.assert_allclose(got[0, 3, 0], 1e-20 / eps / floor,
                                    rtol=1e-5)
         assert not np.delete(got, 3, axis=1).any()
+    assert rel_fro(Xc, Xj) <= 1e-5
 
 
 def test_entries_run_reference_on_cpu_without_counting():
@@ -198,3 +215,82 @@ def test_rejects_unsupported_inputs(bad):
     with pytest.raises(ValueError):
         k5.chol_solve_real_spd(A2, B2)
     assert k5.max_rows(24) >= 512            # the WPE headline fits
+
+
+HERMITIAN_RTOL = {np.complex64: 1e-5, np.complex128: 1e-10}
+
+
+@pytest.mark.parametrize('dtype', [np.complex64, np.complex128],
+                         ids=['c64', 'c128'])
+@pytest.mark.parametrize('d,E,refine', [
+    (33, 1, 0), (33, 24, 0), (40, 1, 0), (40, 24, 1), (64, 1, 1),
+    (64, 24, 0), (240, 1, 0), (240, 24, 0), (240, 24, 1)],
+    ids=lambda v: str(v))
+def test_hermitian_solve_chol_reference_matches_jax(d, E, refine, dtype):
+    """The plain version of the WPE solve (and the entry on CPU tensors,
+    which runs it uncounted) vs JAX's default ``hermitian_solve``
+    (``method='chol'``) at the WPE load, on equilibration-heavy HPD
+    systems."""
+    from pb_chime5_tpu.ops.linalg import hermitian_solve as jax_solve
+    A, B = random_hpd_system(3 if d == 240 else 2, d, E, seed=d + E)
+    A, B = A.astype(dtype), B.astype(dtype)
+    X = k5.hermitian_solve_chol_reference(
+        torch.from_numpy(A), torch.from_numpy(B), relative_load=1e-4,
+        refine=refine).numpy()
+    Xj = np.asarray(jax_solve(jnp.asarray(A), jnp.asarray(B),
+                              relative_load=1e-4, method='chol',
+                              refine=refine))
+    assert X.dtype == Xj.dtype == dtype and np.isfinite(X).all()
+    assert rel_fro(X, Xj) <= HERMITIAN_RTOL[dtype], rel_fro(X, Xj)
+    if dtype == np.complex64:
+        before = k5.hermitian_solve_chol.launches
+        got = k5.hermitian_solve_chol(torch.from_numpy(A),
+                                      torch.from_numpy(B),
+                                      relative_load=1e-4, refine=refine)
+        np.testing.assert_array_equal(got.numpy(), X)
+        assert k5.hermitian_solve_chol.launches == before
+
+
+@pytest.mark.parametrize('dtype', [np.complex64, np.complex128],
+                         ids=['c64', 'c128'])
+def test_hermitian_solve_chol_all_zero_matrix_matches_jax(dtype):
+    """An all-zero matrix skips the equilibration (scale 1): the load
+    alone is factored, X = B / load, finite, as JAX gives."""
+    from pb_chime5_tpu.ops.linalg import hermitian_solve as jax_solve
+    _, B = random_hpd_system(2, 40, 3, seed=7)
+    A = np.zeros((2, 40, 40), dtype)
+    B = B.astype(dtype)
+    X = k5.hermitian_solve_chol_reference(
+        torch.from_numpy(A), torch.from_numpy(B), relative_load=1e-4).numpy()
+    Xj = np.asarray(jax_solve(jnp.asarray(A), jnp.asarray(B),
+                              relative_load=1e-4, method='chol'))
+    assert np.isfinite(X).all()
+    assert rel_fro(X, Xj) <= HERMITIAN_RTOL[dtype]
+    np.testing.assert_allclose(X, B / dtype(1e-4).real, rtol=1e-5)
+
+
+@pytest.mark.parametrize('bad', ['small', 'large', 'dtype', 'layout',
+                                 'shape', 'empty', 'device', 'refine'])
+def test_hermitian_solve_chol_rejects_unsupported_inputs(bad):
+    A, B = (torch.from_numpy(x) for x in random_hpd_system(2, 40, 3, seed=8))
+    kw = {}
+    if bad == 'small':
+        A, B = A[:, :32, :32].contiguous(), B[:, :32].contiguous()
+    elif bad == 'large':
+        A = torch.eye(264, dtype=A.dtype)[None]
+        B = torch.zeros((1, 264, 3), dtype=B.dtype)
+    elif bad == 'dtype':
+        A, B = A.to(torch.complex128), B.to(torch.complex128)
+    elif bad == 'layout':
+        A = A.transpose(-2, -1)
+    elif bad == 'shape':
+        B = B[:, :33].contiguous()
+    elif bad == 'empty':
+        A, B = A[:0], B[:0]
+    elif bad == 'device':
+        B = B.to('meta')
+    elif bad == 'refine':
+        kw = dict(refine=-1)
+    with pytest.raises(ValueError):
+        k5.hermitian_solve_chol(A, B, relative_load=1e-4, **kw)
+    assert k5.supports(240, 24) and not k5.supports(32, 24)

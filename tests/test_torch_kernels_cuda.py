@@ -44,7 +44,12 @@ Tolerances and their reasons:
   frequency <= 1e-5 against the plain version (the same panels and
   floor; the 32-wide products summed in other orders) and <= 1e-4
   against a float64 solve of the same loaded system; the zero-pivot
-  floor pin is exact (1 / FLT_MIN).
+  floor pin is exact (1 / FLT_MIN).  The complex instantiation
+  (``hermitian_solve_chol``, the WPE solve) under the same gates against
+  its plain version and against a float64 ``hermitian_solve`` with the
+  same ``refine``, and bit-equal to its plain version (which performs
+  the kernel's operations one for one); its relative floor pin within
+  1e-5 of b / eps^3, the healthy rows exact.
 """
 
 import numpy as np
@@ -580,3 +585,88 @@ def test_chol_solve_rejects_unsupported_inputs(cuda):
         with pytest.raises(ValueError):
             chol_solve.chol_solve_real_spd(*args)
     assert chol_solve.chol_solve_real_spd.launches == before
+
+
+# the complex instantiation (hermitian_solve_chol): d one above a panel
+# (33), a padded last panel (40, 200, 240), whole panels (64, 256)
+@pytest.mark.parametrize('refine', [0, 1], ids=['refine0', 'refine1'])
+@pytest.mark.parametrize('E', [1, 3, 24])
+@pytest.mark.parametrize('d', [33, 40, 64, 200, 240, 256])
+def test_hermitian_solve_chol_matches_reference(cuda, d, E, refine):
+    F = 513 if (d, E) == (240, 24) else 5
+    A, B = hpd_system(F, d, E, seed=d + E, device=cuda)
+    before = chol_solve.hermitian_solve_chol.launches
+    X = chol_solve.hermitian_solve_chol(A, B, relative_load=1e-4,
+                                        refine=refine)
+    torch.cuda.synchronize()
+    assert chol_solve.hermitian_solve_chol.launches == before + 1
+    assert X.shape == B.shape and X.dtype == torch.complex64
+    assert torch.isfinite(X).all()
+    ref = chol_solve.hermitian_solve_chol_reference(
+        A, B, relative_load=1e-4, refine=refine)
+    assert frobenius_errors(X, ref) <= SOLVE_RTOL
+    assert torch.equal(X, ref)          # the same operations, one for one
+    X64 = linalg.hermitian_solve(A.to(torch.complex128),
+                                 B.to(torch.complex128), relative_load=1e-4,
+                                 refine=refine)
+    assert frobenius_errors(X.to(torch.complex128), X64) <= SOLVE_F64_RTOL
+
+
+def test_hermitian_solve_chol_relative_floor_pin(cuda):
+    """Identity 40 x 40 with A[3, 3] = 0, no load: the pivot is floored
+    at eps^2 max(diag) (the padding's ones counted), after the scale
+    floor 1 / sqrt(eps) on row 3: X[3] = b / eps / eps^2, as the plain
+    version (and JAX) give; every other row exact."""
+    eps = torch.finfo(torch.float32).eps
+    A = torch.eye(40, dtype=torch.complex64, device=cuda)[None].contiguous()
+    A[0, 3, 3] = 0
+    B = torch.zeros((1, 40, 2), dtype=torch.complex64, device=cuda)
+    B[0, 3, 0] = 1e-20
+    B[0, 7, 1] = 2
+    X = chol_solve.hermitian_solve_chol(A, B, relative_load=0)
+    ref = chol_solve.hermitian_solve_chol_reference(A, B, relative_load=0)
+    assert abs(float(X[0, 3, 0].real) / (1e-20 / eps ** 3) - 1) <= 1e-5
+    assert torch.equal(X, ref)
+    rest = torch.cat([X[:, :3], X[:, 4:]], dim=1)
+    want = torch.cat([B[:, :3], B[:, 4:]], dim=1)
+    assert torch.equal(rest, want)
+
+
+def test_hermitian_solve_chol_all_zero_matrix(cuda):
+    """An all-zero matrix is not equilibrated: the load alone is solved,
+    X = B / load, as the plain version gives."""
+    A = torch.zeros((2, 48, 48), dtype=torch.complex64, device=cuda)
+    _, B = hpd_system(2, 48, 3, seed=21, device=cuda)
+    X = chol_solve.hermitian_solve_chol(A, B, relative_load=1e-4)
+    ref = chol_solve.hermitian_solve_chol_reference(A, B, relative_load=1e-4)
+    assert torch.isfinite(X).all()
+    assert torch.equal(X, ref)
+
+
+@pytest.mark.parametrize('refine', [0, 1])
+def test_hermitian_solve_chol_is_deterministic_and_batch_independent(
+        cuda, refine):
+    A, B = hpd_system(40, 240, 24, seed=22, device=cuda)
+    X = chol_solve.hermitian_solve_chol(A, B, relative_load=1e-4,
+                                        refine=refine)
+    assert torch.equal(X, chol_solve.hermitian_solve_chol(
+        A, B, relative_load=1e-4, refine=refine))
+    one = chol_solve.hermitian_solve_chol(
+        A[17:18].contiguous(), B[17:18].contiguous(), relative_load=1e-4,
+        refine=refine)
+    assert torch.equal(one, X[17:18])
+
+
+def test_hermitian_solve_chol_rejects_unsupported_inputs(cuda):
+    A, B = hpd_system(2, 64, 3, seed=23, device=cuda)
+    small = hpd_system(2, 32, 3, seed=23, device=cuda)
+    large = hpd_system(1, 264, 3, seed=23, device=cuda)
+    before = chol_solve.hermitian_solve_chol.launches
+    for args in (small, large, (A.to(torch.complex128), B),
+                 (A.transpose(-2, -1), B), (A, B.cpu()), (A[:0], B[:0]),
+                 (A, B[:, :40])):
+        with pytest.raises(ValueError):
+            chol_solve.hermitian_solve_chol(*args, relative_load=1e-4)
+    with pytest.raises(ValueError):
+        chol_solve.hermitian_solve_chol(A, B, relative_load=1e-4, refine=-1)
+    assert chol_solve.hermitian_solve_chol.launches == before

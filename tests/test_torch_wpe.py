@@ -178,3 +178,31 @@ def test_solve_refine_matches_jax_and_cancels_bias(rng):
     assert d1 < d0 / 5, (d0, d1)
     assert d2 < d1, (d1, d2)
     assert abs(dev(1, chunk_size=32) - d1) < 1e-9
+
+
+def test_complex64_solve_runs_the_cholesky_kernel_entry(rng, monkeypatch):
+    """complex64 with 32 < taps * D <= 256: every filter solve (plain and
+    chunked iteration, ``solve_refine`` too) goes through
+    ``hermitian_solve_chol``, whose plain version runs on the CPU; in
+    complex128 (and at d <= 32) ``linalg.hermitian_solve`` solves."""
+    from pb_chime5_tpu_torch.ops.kernels import chol_solve
+    calls = []
+    plain = chol_solve.hermitian_solve_chol_reference
+
+    def counted(*args, **kwargs):
+        calls.append(kwargs.get('refine'))
+        return plain(*args, **kwargs)
+    monkeypatch.setattr(chol_solve, 'hermitian_solve_chol_reference', counted)
+    Y = _random_reverberant(rng, F=3, D=8, T=80)
+    kw = dict(taps=5, delay=1, iterations=2)
+    for chunk_size, refine in ((None, 0), (32, 1)):
+        calls.clear()
+        got = port.wpe(torch.from_numpy(Y.astype(np.complex64)),
+                       chunk_size=chunk_size, solve_refine=refine, **kw)
+        assert calls == [refine] * 2
+        assert got.dtype == torch.complex64 and torch.isfinite(got).all()
+    calls.clear()
+    port.wpe(torch.from_numpy(Y), **kw)
+    port.wpe(torch.from_numpy(Y.astype(np.complex64)), taps=4, delay=1,
+             iterations=2)
+    assert calls == []
