@@ -34,7 +34,9 @@ Phases (the first failure ends the run with a non-zero exit code):
    real-form wrapper, and their device times from CUDA graphs;
 4. default path: a synthetic 6-array x 4-mic PCM16 CHiME-5 session -> DB
    JSON -> the port's CLI ``test_run`` (2 utterances, default
-   ``GssConfig``, K = 5 with the garbage class) on the card; the fused
+   ``GssConfig``, K = 5 with the garbage class, the session-audio cache
+   on: both utterances must be served from its window, as its stats line
+   shows) on the card; the fused
    kernel must carry every E+M pass and ``em_finalize`` every finalize
    (20 each per utterance), the Gauss-Jordan kernel the MVDR solve (1),
    ``hermitian_solve_chol`` every WPE solve (3);
@@ -79,7 +81,27 @@ Phases (the first failure ends the run with a non-zero exit code):
    at a 10-iteration EM each option (and ``ch2`` / ``sum``) card vs CPU,
    with the SIR gate for the separating beamformers, GEV without BAN and
    GEV + BAN with WPE printed beside them (not gated), and ``'schur'`` on
-   the CPU alone.
+   the CPU alone;
+8. session path: ``bench.py``'s session (S02, 420 s, 25 utterances a
+   speaker, 6 arrays x 4 mics, PCM16, seed 3) through ``enhance_session``
+   at the default config, a warm-up pass, then the session-audio cache on,
+   off, off, on: each pass's wall, utterances a second, xRT over emitted
+   and processed seconds, the chains' stage windows and the share of the
+   wall outside them, the cache's stats line, the bytes read and uploaded
+   each way, peak device memory; gated: 20 / 20 / 1 / 3 launches an
+   utterance and nothing else, every cached WAV byte-identical to its
+   direct twin, ``hits > 0``, ``refills >= 2``, ``prefetch_hits >= 1``,
+   ``prefetch_wasted == 0``, ``direct == 0``; once more with a 60 s window
+   (a refill every few utterances, dispatches of the old window still
+   queued): byte-identical again; one refill's parts timed (host read,
+   ``pin_memory``, the copy, the cache's upload);
+9. quality: ``tests/test_realistic_scene.py``'s realistic scenes (seeds
+   0-4, made in parallel processes) through ``gss_enhance`` on the card,
+   postfilter None and 'mask_mul': at a 10-iteration EM gated on that
+   test's pins as medians over seeds 0-2 (SIR gain bf > 1.5 dB, mask_mul
+   > 10 dB; overlap STOI > 0.5; mask_mul - raw > 0.02; mask_mul - bf over
+   the span > -0.05), the per-seed values and the 5-seed medians printed;
+   the default 20 + 1 EM printed beside them.
 
 Before each path's run every kernel's launch count is set to 0, and it is
 read right after.  It imports the port (``pb_chime5_tpu_torch``) and the
@@ -95,7 +117,10 @@ own function (``chol_solve_real_spd``) and its real-form wrapper under
 ``entries``.
 """
 
+import ast
+import contextlib
 import dataclasses
+import io
 import json
 import re
 import shutil
@@ -127,6 +152,13 @@ WPE_ITERATIONS = 3
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 FP32_FLOP_PER_S = 67e12       # H100 SXM data sheet, CUDA cores
 LIBRARIES = ('fused_em', 'wpe_stats', 'gj_inverse', 'chol_solve')
+
+
+START = time.perf_counter()
+
+
+def phase(title):
+    print(f'== {title} [{time.perf_counter() - START:.1f} s]', flush=True)
 
 
 def imported_jax():
@@ -759,19 +791,22 @@ def default_path(torch, counts, work):
             f'database_path={db}', 'device=cuda']
 
     counts.reset()
+    tee = Tee(sys.stdout)
     start = time.perf_counter()
-    exp.run_commandline(argv)
+    with contextlib.redirect_stdout(tee):
+        exp.run_commandline(argv)
     cli_s = time.perf_counter() - start
     launches = counts.read()
     print(f'default path launches: {launches}', flush=True)
 
     wavs = sorted((exp.run_dir / 'audio' / 'dev').glob('*.wav'))
     check(len(wavs) == 2, f'expected 2 WAVs, got {wavs}')
-    expected = {**dict.fromkeys(launches, 0),
-                'fused_em_scatter': EM_PASSES * len(wavs),
-                'em_finalize': EM_PASSES * len(wavs),
-                'gauss_jordan_inverse_and_logdet': MVDR_SOLVES * len(wavs),
-                'hermitian_solve_chol': WPE_ITERATIONS * len(wavs)}
+    stats = cache_stats_line(tee.text.getvalue())
+    check(stats['hits'] + stats['refills'] == len(wavs)
+          and stats['direct'] == 0 and stats['prefetch_wasted'] == 0,
+          f'the CLI did not serve every utterance from the session-audio '
+          f'cache: {stats}')
+    expected = expected_launches(launches, len(wavs))
     check(launches == expected,
           f'default path launches {launches}, expected {expected} '
           f'({EM_PASSES} fused E+M passes and finalizes, {MVDR_SOLVES} '
@@ -1195,6 +1230,283 @@ def options_path(torch, counts, enhancer, examples):
     check(not imported_jax(), 'the run imported jax or the JAX package')
 
 
+# phase 8: bench.py's session (bench.py:202-205)
+SESSION = dict(session_ids=('S02',), duration_seconds=420.0,
+               utterances_per_speaker=25, num_arrays=6, num_array_mics=4,
+               seed=3, pcm16=True)
+RACE_WINDOW_SECONDS = 60.0    # a refill every few utterances
+QUALITY_SEEDS = (0, 1, 2, 3, 4)
+GATED_SEEDS = (0, 1, 2)       # tests/test_realistic_scene.py's pins
+
+
+def expected_launches(launches, n):
+    """The default config's launches for ``n`` utterances: K1 and
+    ``em_finalize`` EM_PASSES times, the MVDR solve's inverse MVDR_SOLVES
+    times, the WPE solve WPE_ITERATIONS times, nothing else."""
+    return {**dict.fromkeys(launches, 0),
+            'fused_em_scatter': EM_PASSES * n,
+            'em_finalize': EM_PASSES * n,
+            'gauss_jordan_inverse_and_logdet': MVDR_SOLVES * n,
+            'hermitian_solve_chol': WPE_ITERATIONS * n}
+
+
+class Tee(io.TextIOBase):
+    """Standard output that also keeps what was written."""
+
+    def __init__(self, out):
+        self.out, self.text = out, io.StringIO()
+
+    def write(self, s):
+        self.text.write(s)
+        return self.out.write(s)
+
+    def flush(self):
+        self.out.flush()
+
+
+def cache_stats_line(text):
+    """The dict of the last ``session-audio cache: {...}`` line."""
+    lines = [line for line in text.splitlines()
+             if line.startswith('session-audio cache: ')]
+    check(bool(lines), 'no session-audio cache line was printed')
+    return ast.literal_eval(lines[-1].split(': ', 1)[1])
+
+
+def make_session_corpus(root):
+    from pb_chime5_tpu_torch.database.create_json import create_database
+    from pb_chime5_tpu_torch.io import dump_json
+    from pb_chime5_tpu_torch.testing import create_synthetic_chime5
+    create_synthetic_chime5(root / 'CHiME5', **SESSION)
+    dump_json(create_database(root / 'CHiME5'), root / 'chime5.json')
+    return root / 'chime5.json'
+
+
+def observation_bytes(enhancer, examples):
+    """(bytes read, bytes uploaded, valid seconds) of the direct path's
+    observations: each array read up to its files' end, the min over the
+    arrays zero-padded to its length bucket and uploaded."""
+    from pb_chime5_tpu_torch.io import audio_length
+    lengths, read, upload, valid = {}, 0, 0, 0
+    for ex in examples:
+        spans = enhancer._cache_spans(ex, ex['reference_array'])
+        ns = []
+        for paths, s, e, _sel in spans:
+            key = tuple(paths)
+            if key not in lengths:
+                lengths[key] = min(audio_length(p) for p in paths)
+            ns.append(max(min(e, lengths[key]) - s, 0))
+            read += len(paths) * ns[-1] * 2
+        channels = sum(len(paths) for paths, *_ in spans)
+        upload += channels * enhancer._pipeline.bucket_length(min(ns)) * 2
+        valid += min(ns)
+    return read, upload, valid / 16000
+
+
+def settled_stats(cache):
+    """The cache's stats once a pending prefetch (the window past a
+    session's last utterance) is discarded and charged."""
+    cache.new_run()
+    if cache._executor is not None:
+        cache._executor.submit(lambda: None).result()
+    return dict(cache.stats)
+
+
+def session_pass(torch, counts, enhancer, n, out):
+    """One ``enhance_session`` of the whole session into ``out``: its
+    wall, launches (gated), the cache's stats line of this call, the bytes
+    it moved with the prefetched window that its end leaves (charged to
+    the next call's line), the peak device memory, and the sum of the
+    chains' stage windows (``record_stage_times``: from each
+    ``gss_enhance``'s first event to its last on the stream) with the
+    share of the wall outside them, where the card waits between
+    utterances."""
+    from pb_chime5_tpu_torch.models import gss
+    cache = enhancer._audio_cache
+    before = settled_stats(cache) if cache is not None else None
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counts.reset()
+    tee = Tee(sys.stdout)
+    with gss.record_stage_times() as times:
+        start = time.perf_counter()
+        with contextlib.redirect_stdout(tee):
+            enhancer.enhance_session(['S02'], out, audio_dir_exist_ok=True)
+        wall = time.perf_counter() - start
+    chain_s = sum(sum(t.values()) for t in times) / 1e3
+    launches = counts.read()
+    check(launches == expected_launches(launches, n),
+          f'session pass launches {launches}, expected '
+          f'{expected_launches(launches, n)}')
+    wavs = sorted((out / 'dev').glob('*.wav'))
+    check(len(wavs) == n, f'{len(wavs)} WAVs, expected {n}')
+    numbers = dict(wall_s=wall, chain_s=chain_s,
+                   outside_chains=1 - chain_s / wall,
+                   peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    if cache is None:
+        return numbers
+    after = settled_stats(cache)
+    return dict(numbers, stats=cache_stats_line(tee.text.getvalue()),
+                moved_mb=after['refill_mb'] - before['refill_mb'],
+                tail_prefetch_wasted=(after['prefetch_wasted']
+                                      - before['prefetch_wasted']))
+
+
+def same_wavs(a, b):
+    names = sorted(p.name for p in (a / 'dev').glob('*.wav'))
+    return names == sorted(p.name for p in (b / 'dev').glob('*.wav')) and \
+        all((a / 'dev' / n).read_bytes() == (b / 'dev' / n).read_bytes()
+            for n in names)
+
+
+def check_cache_stats(stats, n, label):
+    check(stats['hits'] > 0 and stats['refills'] >= 2
+          and stats['prefetch_hits'] >= 1 and stats['prefetch_wasted'] == 0
+          and stats['direct'] == 0
+          and stats['hits'] + stats['refills'] == n,
+          f'{label}: cache stats {stats}: expected hits > 0, refills >= 2, '
+          f'prefetch_hits >= 1, prefetch_wasted == 0, direct == 0 and '
+          f'every utterance served from a window')
+
+
+def refill_anatomy(torch, cache, spans):
+    """One window refill in parts: the host read, ``pin_memory()`` three
+    times (PyTorch's caching host allocator keeps a freed pinned block),
+    the copy from pinned memory, and the cache's whole ``upload()`` three
+    times."""
+    from pb_chime5_tpu_torch.models.audio_cache import SessionAudioCache
+    host_cache = SessionAudioCache(window_seconds=cache.window / 16000,
+                                   coerce=cache.coerce, device='cpu')
+    bases = [max(0, s - cache.margin) for _p, s, _e, _sel in spans]
+    host, nbytes, read_s = host_cache._load_window(spans, bases)
+    times = {'read_s': read_s, 'pin_s': [], 'upload_s': []}
+    for _ in range(3):
+        start = time.perf_counter()
+        pinned = host.pin_memory()
+        times['pin_s'].append(time.perf_counter() - start)
+    start = time.perf_counter()
+    pinned.to('cuda', non_blocking=True)
+    torch.cuda.synchronize()
+    times['copy_s'] = time.perf_counter() - start
+    for _ in range(3):
+        start = time.perf_counter()
+        cache.upload(host.numpy())
+        times['upload_s'].append(time.perf_counter() - start)
+    print('refill anatomy', json.dumps({'window_mb': nbytes / 1e6,
+                                        **times}), flush=True)
+
+
+def session_path(torch, counts, work):
+    """Phase 8: the session path as users run it (``enhance_session`` at
+    the default config, 6 arrays x 4 mics) on bench.py's 420 s session,
+    with the session-audio cache on and off in turns."""
+    from pb_chime5_tpu_torch.models.enhancer import get_enhancer
+    start = time.perf_counter()
+    db = make_session_corpus(work / 'session')
+    print(f'session corpus + DB JSON: {time.perf_counter() - start:.2f} s',
+          flush=True)
+    kw = dict(multiarray=True, database_path=str(db), device='cuda')
+    enhancers = {'on': get_enhancer(**kw),
+                 'off': get_enhancer(device_audio_cache=False, **kw)}
+    examples = list(enhancers['on'].get_iterator('S02'))
+    n = len(examples)
+    read, upload, valid_s = observation_bytes(enhancers['off'], examples)
+    emitted_s = sum(ex['num_samples_orig']['observation'][
+        ex['reference_array']] for ex in examples) / 16000
+    session_s = SESSION['duration_seconds']
+    print(f'session S02: {session_s} s, {n} utterances ({n / session_s:.3f} '
+          f'a second), {emitted_s:.3f} s emitted, {valid_s:.3f} s of '
+          f'observation processed; direct path: {read / 1e6:.1f} MB read, '
+          f'{upload / 1e6:.1f} MB uploaded', flush=True)
+
+    out = work / 'session' / 'out'
+    session_pass(torch, counts, enhancers['on'], n, out / 'warm')
+    passes = []
+    for i, mode in enumerate(('on', 'off', 'off', 'on')):
+        p = session_pass(torch, counts, enhancers[mode], n, out / f'{i}')
+        p['mode'] = mode
+        if mode == 'on':
+            check_cache_stats(p['stats'], n, f'pass {i} (cache on)')
+            p['read_mb'] = p['upload_mb'] = p['moved_mb']
+        else:
+            p['read_mb'], p['upload_mb'] = read / 1e6, upload / 1e6
+        p.update(utterances_per_s=n / p['wall_s'],
+                 xrt_emitted=emitted_s / p['wall_s'],
+                 xrt_processed=valid_s / p['wall_s'])
+        passes.append(p)
+        print('session pass', json.dumps({'pass': i, **p}), flush=True)
+    for mode in ('on', 'off'):
+        walls = [p['wall_s'] for p in passes if p['mode'] == mode]
+        print(f'session walls, cache {mode}: {walls} s, median '
+              f'{statistics.median(walls):.4f} s, spread '
+              f'{max(walls) - min(walls):.4f} s', flush=True)
+    identical = all(same_wavs(out / '1', out / f'{i}') for i in (0, 2, 3))
+    print(f'cached WAVs byte-identical to the direct ones: {identical}',
+          flush=True)
+    check(identical, 'the cached session wrote other WAVs than the direct '
+                     'one')
+
+    race = get_enhancer(cache_window_seconds=RACE_WINDOW_SECONDS, **kw)
+    p = session_pass(torch, counts, race, n, out / 'race')
+    identical = same_wavs(out / '1', out / 'race')
+    print('race check', json.dumps({
+        'window_s': RACE_WINDOW_SECONDS, 'write_ahead': 'default (4)', **p,
+        'byte_identical': identical}), flush=True)
+    check(identical and p['stats']['direct'] == 0
+          and p['stats']['refills'] >= 2
+          and p['stats']['hits'] + p['stats']['refills'] == n,
+          f'race check: byte-identical {identical}, stats {p["stats"]}')
+    ex = examples[len(examples) // 2]
+    refill_anatomy(torch, enhancers['on']._audio_cache,
+                   enhancers['on']._cache_spans(ex, ex['reference_array']))
+    check(not imported_jax(), 'the run imported jax or the JAX package')
+
+
+def quality_path(torch):
+    """Phase 9: tests/test_realistic_scene.py's quality gate on the card:
+    the realistic scenes of QUALITY_SEEDS (made in parallel processes)
+    through ``gss_enhance`` on CUDA at a 10-iteration EM, postfilter None
+    and 'mask_mul', gated on the JAX test's pins as medians over
+    GATED_SEEDS; the default 20 + 1 EM printed beside it."""
+    import concurrent.futures
+    import functools
+    import multiprocessing
+    import numpy as np
+    from pb_chime5_tpu_torch.testing.rooms import make_reverberant_scene
+    from tests.test_torch_realistic_scene import (
+        PINS, SCENE, chain_quality, medians)
+    start = time.perf_counter()
+    with concurrent.futures.ProcessPoolExecutor(
+            len(QUALITY_SEEDS),
+            mp_context=multiprocessing.get_context('spawn')) as pool:
+        scenes = list(pool.map(
+            functools.partial(make_reverberant_scene, **SCENE),
+            [np.random.default_rng(seed) for seed in QUALITY_SEEDS]))
+    print(f'{len(scenes)} realistic scenes: '
+          f'{time.perf_counter() - start:.2f} s', flush=True)
+    gated = None
+    for label, config in (('10-iteration EM', dict(bss_iterations=10)),
+                          ('default 20 + 1 EM', {})):
+        start = time.perf_counter()
+        per_seed = {seed: chain_quality(scene, 'cuda', **config)
+                    for seed, scene in zip(QUALITY_SEEDS, scenes)}
+        for seed, q in per_seed.items():
+            print('quality', json.dumps({'config': label, 'seed': seed, **q}),
+                  flush=True)
+        med3 = medians({s: per_seed[s] for s in GATED_SEEDS})
+        print('quality medians', json.dumps({
+            'config': label, f'seeds {list(GATED_SEEDS)}': med3,
+            f'seeds {list(QUALITY_SEEDS)}': medians(per_seed),
+            'pins (median over seeds 0-2 >)': PINS,
+            'gated': gated is None,
+            'seconds': time.perf_counter() - start}), flush=True)
+        if gated is None:
+            gated = med3
+    failed = {k: v for k, v in gated.items() if not v > PINS[k]}
+    check(not failed, f'quality pins missed on the card: {failed}')
+    check(not imported_jax(), 'the run imported jax or the JAX package')
+
+
+
 class LaunchCounts:
     """The launch counters of every kernel entry of the port."""
 
@@ -1256,7 +1568,7 @@ def main():
     from pb_chime5_tpu_torch.ops.kernels import (
         _build, chol_solve, fused_em, gj_inverse, wpe_stats)
 
-    print('== 1 device', flush=True)
+    phase('1 device')
     card = subprocess.run(
         ['nvidia-smi', '--query-gpu=name,power.limit',
          '--format=csv,noheader'], capture_output=True, text=True,
@@ -1266,10 +1578,10 @@ def main():
           f'{torch.cuda.get_device_name(0)}', flush=True)
     _device.assert_precision()
 
-    print('== 2 build', flush=True)
+    phase('2 build')
     build(_build)
 
-    print('== 3 kernels vs plain', flush=True)
+    phase('3 kernels vs plain')
     results = {'fused_em_scatter': k1_vs_plain(torch, fused_em),
                'wpe_statistics': k2_vs_plain(torch, wpe_stats),
                **gj_vs_plain(torch, gj_inverse),
@@ -1280,22 +1592,29 @@ def main():
     (REPO / 'build').mkdir(exist_ok=True)
     work = Path(tempfile.mkdtemp(prefix='chip_smoke_', dir=REPO / 'build'))
     try:
-        print('== 4 default path', flush=True)
+        phase('4 default path')
         default_launches, enhancer, examples = default_path(
             torch, counts, work)
-        print('== 5 all-Pallas path', flush=True)
+        phase('5 all-Pallas path')
         pallas_launches = all_pallas_path(torch, counts, enhancer, examples)
         torch.cuda.empty_cache()
-        print('== 6 K1, em_finalize and the MVDR inverse on the EM state, '
-              'and the WPE systems, of P06', flush=True)
+        phase('6 K1, em_finalize and the MVDR inverse on the EM state, and '
+              'the WPE systems, of P06')
         k1_on_p06(torch, fused_em, gj_inverse, enhancer, examples)
         results['gauss_jordan_inverse_and_logdet'] = mvdr_on_p06(
             torch, gj_inverse, enhancer, examples)
         torch.cuda.empty_cache()
         wpe_systems(torch, chol_solve, wpe_stats, enhancer, examples)
         torch.cuda.empty_cache()
-        print('== 7 options path', flush=True)
+        phase('7 options path')
         options_path(torch, counts, enhancer, examples)
+        del enhancer
+        torch.cuda.empty_cache()
+        phase('8 session path, session-audio cache on and off')
+        session_path(torch, counts, work)
+        torch.cuda.empty_cache()
+        phase('9 quality gate on the realistic scenes')
+        quality_path(torch)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -1356,6 +1675,7 @@ def main():
                     'hermitian_solve_pallas',
                     default_launches['hermitian_solve_pallas'], 'none')}),
     ]
+    phase('done')
     print(card, flush=True)
     print(json.dumps({'kernels': kernels}), flush=True)
     print(json.dumps({'ok': True, 'device': {

@@ -7,6 +7,9 @@ Same call semantics as ``pb_chime5_tpu.io`` for what the port uses:
   to [-1, 1) for a float ``dtype`` (default float64); ``dtype=None``
   keeps the file's samples unscaled.  A list of paths loads as one
   stacked array (a CHiME array's 4 per-channel files -> (4, N)).
+  ``fill_value=`` pads a read that the end of the file cuts short to
+  exactly ``stop - start`` samples.
+* ``audio_length(path)`` is a file's number of frames, from its header.
 * ``dump_audio`` peak-normalizes with the (2^15 - 1) / 2^15 correction
   and writes 16 kHz int16 by default; ``dtype=None`` writes the array's
   own float or int type.
@@ -22,7 +25,8 @@ from pathlib import Path
 
 import numpy as np
 
-__all__ = ['load_audio', 'dump_audio', 'load_json', 'dump_json']
+__all__ = ['load_audio', 'audio_length', 'dump_audio', 'load_json',
+           'dump_json']
 
 _FMT_PCM = 1
 _FMT_FLOAT = 3
@@ -67,8 +71,9 @@ def _wav_header(f, path):
             f.seek(size + (size & 1), 1)
 
 
-def _load_one(path, start, stop, dtype):
+def _load_one(path, start, stop, dtype, fill_value):
     path = Path(path).expanduser()
+    requested = None if stop is None else stop - start
     with open(path, 'rb') as f:
         file_dtype, channels, _, num_frames, offset = _wav_header(f, path)
         stop = num_frames if stop is None else min(stop, num_frames)
@@ -77,6 +82,10 @@ def _load_one(path, start, stop, dtype):
         f.seek(offset + start * channels * file_dtype.itemsize)
         raw = f.read(count * channels * file_dtype.itemsize)
     data = np.frombuffer(raw, file_dtype).reshape(-1, channels)
+    if fill_value is not None and requested is not None \
+            and len(data) < requested:
+        data = np.pad(data, [(0, requested - len(data)), (0, 0)],
+                      constant_values=fill_value)
     if channels == 1:
         data = data[:, 0]
     if dtype is not None:
@@ -87,12 +96,22 @@ def _load_one(path, start, stop, dtype):
     return data.T
 
 
-def load_audio(path, *, start=0, stop=None, dtype=np.float64):
+def load_audio(path, *, start=0, stop=None, dtype=np.float64,
+               fill_value=None):
     """Samples ``[start, stop)`` of a WAV file, or of each file of a
-    list (stacked)."""
+    list (stacked); with ``fill_value``, a read cut short by the end of
+    the file is padded with it to ``stop - start`` samples."""
     if isinstance(path, (list, tuple)):
-        return np.array([_load_one(p, start, stop, dtype) for p in path])
-    return _load_one(path, start, stop, dtype)
+        return np.array([_load_one(p, start, stop, dtype, fill_value)
+                         for p in path])
+    return _load_one(path, start, stop, dtype, fill_value)
+
+
+def audio_length(path):
+    """Number of frames of a WAV file, read from its header."""
+    path = Path(path).expanduser()
+    with open(path, 'rb') as f:
+        return _wav_header(f, path)[3]
 
 
 def dump_audio(obj, path, *, dtype=np.int16, normalize=True):

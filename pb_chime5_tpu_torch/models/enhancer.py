@@ -3,8 +3,12 @@
 
 Per-session iteration, multi-array stacking, activity slicing, context
 bookkeeping and WAV output stay on the host; each utterance is one
-asynchronous :meth:`GssPipeline.dispatch` on the card.  Not in this
-slice (ROADMAP.md, Queue 1): the device-resident session-audio cache,
+asynchronous dispatch on the card.  By default (``device_audio_cache``)
+a session is dispatched in session-time order, and each utterance's
+observation is sliced out of the device-resident session-audio window
+(``models/audio_cache.py``, :meth:`GssPipeline.dispatch_cached`);
+otherwise it is read and uploaded per utterance
+(:meth:`GssPipeline.dispatch`).  Not ported yet (ROADMAP.md, Queue 1):
 the mesh loop, warmup and the debug twin.
 """
 
@@ -19,6 +23,8 @@ from pb_chime5_tpu_torch import mapping
 from pb_chime5_tpu_torch.activity import get_activity
 from pb_chime5_tpu_torch.database.chime5 import Chime5
 from pb_chime5_tpu_torch.io import dump_audio, load_audio
+from pb_chime5_tpu_torch.models.audio_cache import (
+    CachedWindow, SessionAudioCache)
 from pb_chime5_tpu_torch.models.gss import GssConfig, GssPipeline
 from pb_chime5_tpu_torch.ops.stft import samples_to_stft_frames
 from pb_chime5_tpu_torch.parallel.scheduler import length_balanced_shard
@@ -139,6 +145,19 @@ def start_end_context_frames(ex, stft_size, stft_shift, stft_fading):
     )
 
 
+def _example_start_key(ex):
+    """Session-timeline position of an example, for cache-friendly
+    time-ordered dispatch (earliest array start; arrays drift by less
+    than the cache margin, so any of them orders the timeline)."""
+    start = ex['start']
+    if isinstance(start, dict):
+        obs = start.get('observation')
+        if isinstance(obs, dict) and obs:
+            return min(obs.values())
+        return start.get('original', 0)
+    return start
+
+
 @dataclasses.dataclass
 class Enhancer:
     """Session-level driver (reference core.py:281-571), serial path."""
@@ -151,6 +170,15 @@ class Enhancer:
     #                                  'first_array_mics'
     reference_array: str = None
     length_buckets: tuple = DEFAULT_LENGTH_BUCKETS
+    # device-resident rolling session-audio cache (models/audio_cache.py):
+    # session loops slice each utterance out of a resident window of
+    # session audio instead of uploading utterance + 30 s context every
+    # time; outputs are bit-identical either way
+    device_audio_cache: bool = True
+    cache_window_seconds: float = 180.0
+    # background upload of the predicted next window while the current
+    # one still serves hits; self-disabling on misprediction
+    cache_prefetch: bool = True
     # trim the +-context span off the enhanced waveform on the device
     # (GssPipeline._plan_trim): only ~the emitted utterance is downloaded
     device_trim: bool = True
@@ -163,6 +191,14 @@ class Enhancer:
                             if self.length_buckets else None),
             device_trim=self.device_trim,
             device=self.device)
+        self._audio_cache = None
+        if self.device_audio_cache:
+            self._audio_cache = SessionAudioCache(
+                window_seconds=self.cache_window_seconds,
+                coerce=self._pipeline._normalize_obs,
+                bucket_length=self._pipeline.bucket_length,
+                prefetch=self.cache_prefetch,
+                device=self.device)
 
     @property
     def db(self):
@@ -203,7 +239,10 @@ class Enhancer:
         ``shard_fn(examples, length_fn)`` selects this process's subset;
         ``resume=True`` skips examples whose WAV exists; ``on_error``
         'raise' or 'skip'; ``write_ahead`` bounds the utterances in
-        flight on the device while earlier results are written.
+        flight on the device while earlier results are written.  With
+        the session-audio cache on, the shard is dispatched in session
+        time order, and one ``session-audio cache: {...}`` line prints
+        the cache's stats of this call.
         """
         audio_dir = Path(audio_dir)
         it = self.get_iterator(session_ids)
@@ -227,8 +266,16 @@ class Enhancer:
             ns = ex['num_samples']
             return ns['original'] if isinstance(ns, dict) else ns
 
+        shard = shard_fn(list(it), length_fn)
+        if self._audio_cache is not None and isinstance(shard, (list,
+                                                                tuple)):
+            # the session iterator is speaker-grouped (P05_*, P06_*, ...),
+            # so a K-speaker session would traverse the timeline K times
+            # and the rolling window would refill K times over; outputs
+            # are independent files, so the dispatch order is free
+            shard = sorted(shard, key=_example_start_key)
         todo = [
-            ex for ex in shard_fn(list(it), length_fn)
+            ex for ex in shard
             if not (resume and (
                 audio_dir / mapping.session_to_dataset[ex['session_id']]
                 / f"{ex['example_id']}.wav").exists())]
@@ -247,10 +294,31 @@ class Enhancer:
             handle = self._dispatch_loaded(ex, reference_array, obs)
             return ex['example_id'], ex['session_id'], handle
 
+        if self._audio_cache is not None:
+            # a new run is a new schedule: don't inherit a previous
+            # run's wasteful-schedule disable (or its stale window)
+            self._audio_cache.new_run()
+        cache_since = self._cache_stats_snapshot()
         async_session_pump(
-            todo, self._prepare_example, dispatch, finish,
-            lambda ex: ex['example_id'],
+            todo, functools.partial(self._prepare_example, use_cache=True),
+            dispatch, finish, lambda ex: ex['example_id'],
             on_error=on_error, write_ahead=write_ahead)
+        self._log_cache_stats(cache_since)
+
+    def _log_cache_stats(self, since=None):
+        """One line per enhance_session call: how the session-audio cache
+        behaved during this call (``since``: the stats at its entry).
+        'hits' served from the resident window; 'direct' = fallback
+        uploads."""
+        if self._audio_cache is not None:
+            stats = dict(self._audio_cache.stats)
+            if since:
+                stats = {k: v - since.get(k, 0) for k, v in stats.items()}
+            print('session-audio cache:', stats, flush=True)
+
+    def _cache_stats_snapshot(self):
+        return (dict(self._audio_cache.stats)
+                if self._audio_cache is not None else None)
 
     def _resolve_reference_array(self, ex):
         if self.reference_array is not None:
@@ -296,9 +364,25 @@ class Enhancer:
             return [reference_array], slice(None)
         raise ValueError(self.multiarray)
 
-    def _prepare_example(self, ex):
-        """Host I/O (prefetch thread): reference array + observation."""
+    def _cache_spans(self, ex, reference_array):
+        """(paths, start, stop, channel_selector) per array in stacking
+        order — mirrors :meth:`_load_observation` exactly."""
+        obs_paths = ex['audio_path']['observation']
+        arrays, sel = self._multiarray_selection(obs_paths,
+                                                 reference_array)
+        return [(obs_paths[a], ex['start']['observation'][a],
+                 ex['end']['observation'][a], sel) for a in arrays]
+
+    def _prepare_example(self, ex, use_cache=False):
+        """Host I/O (prefetch thread): the reference array and the
+        observation audio — or, with ``use_cache`` and the session-audio
+        cache on, a :class:`CachedWindow` (device window + offsets)."""
         reference_array = self._resolve_reference_array(ex)
+        if use_cache and self._audio_cache is not None:
+            cached = self._audio_cache.lookup(
+                ex['session_id'], self._cache_spans(ex, reference_array))
+            if cached is not None:
+                return reference_array, cached
         return reference_array, self._load_observation(ex, reference_array)
 
     def enhance_example(self, ex):
@@ -350,10 +434,14 @@ class Enhancer:
         activity_freq, target_index, start_cf, end_cf = self._device_args(
             self._example_activity(ex, reference_array),
             ex['speaker_id'], ex)
-        return self._pipeline.dispatch(
-            obs, activity_freq, target_index,
-            start_context_frames=start_cf, end_context_frames=end_cf,
-            trim=self._trim(ex, reference_array))
+        kw = dict(start_context_frames=start_cf, end_context_frames=end_cf,
+                  trim=self._trim(ex, reference_array))
+        if isinstance(obs, CachedWindow):
+            return self._pipeline.dispatch_cached(
+                obs.buf, obs.offsets, obs.num_valid_samples, activity_freq,
+                target_index, **kw)
+        return self._pipeline.dispatch(obs, activity_freq, target_index,
+                                       **kw)
 
     def enhance_observation(self, obs, ex_array_activity, speaker_id,
                             ex=None):
@@ -398,7 +486,7 @@ def get_enhancer(
     length_buckets=DEFAULT_LENGTH_BUCKETS,
     compute_dtype=np.float32,
     compile_mode='fused',
-    device_audio_cache=False,
+    device_audio_cache=True,
     cache_window_seconds=180.0,
     cache_prefetch=True,
     device_trim=True,
@@ -409,11 +497,9 @@ def get_enhancer(
     JAX extensions), plus the compute ``device``.
 
     The pipeline computes in float32 only: any other ``compute_dtype``
-    raises (ROADMAP.md, Queue 1 item 5).  The session-audio cache is not
-    ported yet (Queue 1 item 4), so ``device_audio_cache`` defaults to
-    ``False`` where the JAX package defaults to ``True``, and ``True``
-    raises; ``cache_window_seconds`` and ``cache_prefetch`` are accepted
-    with the JAX names and defaults and unused while it is off."""
+    raises (ROADMAP.md, Queue 1 item 5).  ``device_audio_cache``,
+    ``cache_window_seconds`` and ``cache_prefetch`` switch and size the
+    session-audio cache, with the JAX defaults (on, 180 s, prefetch on)."""
     assert wpe is True or wpe is False, wpe
     assert activity_path is None or activity_type == 'path', \
         (activity_path, activity_type)
@@ -426,10 +512,6 @@ def get_enhancer(
         raise NotImplementedError(
             f'compute_dtype={compute_dtype!r}: the port computes in float32 '
             f'only (ROADMAP.md, Queue 1 item 5)')
-    if device_audio_cache:
-        raise NotImplementedError(
-            'device_audio_cache is not ported yet (ROADMAP.md, Queue 1); '
-            'the uncached path gives the same outputs')
     return Enhancer(
         activity=Activity(
             type=activity_type,
@@ -457,6 +539,9 @@ def get_enhancer(
         multiarray=multiarray,
         reference_array=reference_array,
         length_buckets=length_buckets,
+        device_audio_cache=device_audio_cache,
+        cache_window_seconds=cache_window_seconds,
+        cache_prefetch=cache_prefetch,
         device_trim=device_trim,
         device=device,
     )

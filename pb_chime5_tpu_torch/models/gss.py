@@ -24,7 +24,8 @@ from pb_chime5_tpu_torch.ops.stft import (
     istft, stft, stft_frame_count, valid_frame_mask)
 from pb_chime5_tpu_torch.ops.wpe import wpe
 
-__all__ = ['GssConfig', 'gss_enhance', 'GssPipeline', 'record_stage_times']
+__all__ = ['GssConfig', 'gss_enhance', 'gss_enhance_cached', 'GssPipeline',
+           'record_stage_times']
 
 _ROADMAP = 'not ported yet (see ROADMAP.md, Queue 1)'
 BEAMFORMERS = ('mvdrSouden_ban', 'mvdr_souden', 'gev_ban', 'gev', 'lcmv',
@@ -293,6 +294,52 @@ def gss_enhance(obs, activity_freq, target_index, *,
     return x_hat, masks.permute(1, 2, 0)                       # (K, T, F)
 
 
+def _slice_cached_obs(cache, offsets, num_arrays, slice_samples,
+                      num_valid_samples):
+    """The (A*C, N_pad) observation out of the device-resident session
+    window, as a new contiguous tensor (the window is left as it is):
+    array ``a``'s C rows from ``offsets[a]``, samples from
+    ``num_valid_samples`` on zeroed, so the result equals the direct
+    path's zero-padded upload bit for bit."""
+    A, N_pad = num_arrays, slice_samples
+    C = cache.shape[0] // A
+    obs = torch.cat([cache[a * C:(a + 1) * C,
+                           int(offsets[a]):int(offsets[a]) + N_pad]
+                     for a in range(A)], dim=0)
+    if num_valid_samples is not None:
+        obs[:, int(num_valid_samples):] = 0
+    return obs
+
+
+def gss_enhance_cached(cache, offsets, activity_freq, target_index, *,
+                       config: GssConfig = GssConfig(), num_arrays,
+                       slice_samples, start_context_frames=0,
+                       end_context_frames=0, num_valid_samples=None,
+                       num_output_samples=None, output_trim_start=0,
+                       output_trim_samples=None):
+    """:func:`gss_enhance` with the observation sliced out of a
+    device-resident session-audio window (``models/audio_cache.py``)
+    instead of uploaded per utterance.
+
+    cache (A*C, W) int16 / float tensor of session audio, rows grouped
+    per array (the 'ACN->A*CN' stacking); offsets (A,) host ints, each
+    array's start inside the window (per-array clock drift gives each
+    array its own); ``num_arrays`` A and ``slice_samples`` N_pad;
+    samples from ``num_valid_samples`` on are zeroed (the window holds
+    real audio there, the direct path zeros).  Everything else exactly
+    as :func:`gss_enhance`."""
+    obs = _slice_cached_obs(cache, offsets, num_arrays, slice_samples,
+                            num_valid_samples)
+    return gss_enhance(
+        obs, activity_freq, target_index, config=config,
+        start_context_frames=start_context_frames,
+        end_context_frames=end_context_frames,
+        num_valid_samples=num_valid_samples,
+        num_output_samples=num_output_samples,
+        output_trim_start=output_trim_start,
+        output_trim_samples=output_trim_samples)
+
+
 class GssPipeline:
     """Host wrapper: NumPy in, NumPy out (float32 compute), length
     bucketing, output trim planning and asynchronous dispatch on the
@@ -361,6 +408,14 @@ class GssPipeline:
             x = x.pin_memory()
         return x.to(self.device, non_blocking=True)
 
+    def _bucket_activity(self, activity_freq, N_pad):
+        """(K, T) activity -> int8 (K, T_pad) on the device."""
+        T_pad = self.frame_count(N_pad)
+        act = np.zeros((activity_freq.shape[0], T_pad), np.int8)
+        act[:, :activity_freq.shape[1]] = np.asarray(
+            activity_freq, np.int8)[:, :T_pad]
+        return self._upload(act)
+
     def dispatch(self, obs, activity_freq, target_index, *,
                  start_context_frames=0, end_context_frames=0, trim=None):
         """Enqueue one utterance on the current stream and return a handle
@@ -370,18 +425,56 @@ class GssPipeline:
         obs = self._normalize_obs(obs)
         D, N = obs.shape
         N_pad = self.bucket_length(N)
-        T_pad = self.frame_count(N_pad)
         padded = np.zeros((D, N_pad), obs.dtype)
         padded[:, :N] = obs
-        act = np.zeros((activity_freq.shape[0], T_pad), np.int8)
-        act[:, :activity_freq.shape[1]] = np.asarray(
-            activity_freq, np.int8)[:, :T_pad]
         N_dl, host_slice, trim_kw = self._plan_trim(trim, N, N_pad)
         x_hat, masks = gss_enhance(
-            self._upload(padded), self._upload(act), target_index,
-            config=self.config, start_context_frames=start_context_frames,
+            self._upload(padded), self._bucket_activity(activity_freq, N_pad),
+            target_index, config=self.config,
+            start_context_frames=start_context_frames,
             end_context_frames=end_context_frames, num_valid_samples=N,
             num_output_samples=N_pad, **trim_kw)
+        return self._handle(x_hat, masks, N_dl, host_slice)
+
+    def dispatch_cached(self, cache, offsets, num_valid_samples,
+                        activity_freq, target_index, *,
+                        start_context_frames=0, end_context_frames=0,
+                        trim=None):
+        """:meth:`dispatch` with the observation sliced from a
+        device-resident session window (:func:`gss_enhance_cached`):
+        ``cache`` the (A*C, W) tensor on this pipeline's device,
+        ``offsets`` the per-array window starts, ``num_valid_samples``
+        the true (min-over-arrays) sample count.  Output is bit-identical
+        to :meth:`dispatch` with the equivalent host-loaded observation.
+
+        The window was uploaded on another stream, and its memory goes
+        back to that stream's pool when the cache drops it: it is
+        recorded on the current stream, so the allocator reuses it only
+        after the work enqueued here has read it."""
+        N = int(num_valid_samples)
+        N_pad = self.bucket_length(N)
+        offsets = np.asarray(offsets, np.int32)
+        W = cache.shape[1]
+        if cache.device.type != self.device.type:
+            raise ValueError(f'window on {cache.device}, pipeline on '
+                             f'{self.device}')
+        if offsets.min() < 0 or offsets.max() + N_pad > W:
+            raise ValueError(f'offsets {offsets} + {N_pad} samples outside '
+                             f'the window of {W}')
+        if cache.device.type == 'cuda':
+            cache.record_stream(torch.cuda.current_stream(cache.device))
+        N_dl, host_slice, trim_kw = self._plan_trim(trim, N, N_pad)
+        x_hat, masks = gss_enhance_cached(
+            cache, offsets, self._bucket_activity(activity_freq, N_pad),
+            target_index, config=self.config, num_arrays=len(offsets),
+            slice_samples=N_pad, start_context_frames=start_context_frames,
+            end_context_frames=end_context_frames, num_valid_samples=N,
+            num_output_samples=N_pad, **trim_kw)
+        return self._handle(x_hat, masks, N_dl, host_slice)
+
+    def _handle(self, x_hat, masks, N_dl, host_slice):
+        """Enqueue the waveform's download into pinned host memory behind
+        the compute; the handle of :meth:`gather`."""
         done = None
         if self.device.type == 'cuda':
             host = torch.empty(x_hat.shape, dtype=x_hat.dtype,

@@ -9,6 +9,8 @@ frame-count arithmetic are NumPy / Python copies of the JAX package's
 (``dft_backend='fft'``).
 """
 
+import functools
+
 import numpy as np
 import torch
 import torch.nn.functional as nnf
@@ -78,6 +80,17 @@ def valid_frame_mask(num_valid_samples: int, num_frames: int, size: int,
     return torch.arange(num_frames, device=device) < t_valid
 
 
+@functools.lru_cache(maxsize=16)
+def _window_tensor(window_fn, size, shift, synthesis, dtype, device):
+    """The analysis window (or, with ``synthesis``, its biorthogonal
+    synthesis window) as a tensor on ``device``, made once: a copy from
+    NumPy memory on every call would make each call wait for the card."""
+    window = np.asarray(window_fn(size))
+    if synthesis:
+        window = biorthogonal_synthesis_window(window, shift)
+    return torch.as_tensor(window, dtype=dtype, device=device)
+
+
 def stft(x, size: int = 1024, shift: int = 256, *, fading: bool = True,
          pad: bool = True, window_fn=blackman_window):
     """``(..., N)`` real tensor -> ``(..., T, size // 2 + 1)`` complex."""
@@ -97,9 +110,8 @@ def stft(x, size: int = 1024, shift: int = 256, *, fading: bool = True,
         x = nnf.pad(x, (0, full - n))
     frames = x[..., :full].unfold(-1, size, shift)     # (..., T, size)
     if window_fn is not None:
-        frames = frames * torch.as_tensor(
-            np.asarray(window_fn(size)), dtype=frames.dtype,
-            device=frames.device)
+        frames = frames * _window_tensor(window_fn, size, shift, False,
+                                         frames.dtype, frames.device)
     return torch.fft.rfft(frames, n=size, dim=-1)
 
 
@@ -122,10 +134,8 @@ def istft(X, size: int = 1024, shift: int = 256, *, fading: bool = True,
     crops or zero-pads the result to that length.
     """
     frames = torch.fft.irfft(X, n=size, dim=-1)
-    synthesis = biorthogonal_synthesis_window(
-        np.asarray(window_fn(size)), shift)
-    frames = frames * torch.as_tensor(synthesis, dtype=frames.dtype,
-                                      device=frames.device)
+    frames = frames * _window_tensor(window_fn, size, shift, True,
+                                     frames.dtype, frames.device)
     x = _overlap_add(frames, size, shift)
     if fading:
         x = x[..., size - shift: x.shape[-1] - (size - shift)]

@@ -1,9 +1,12 @@
 """The port's CLI end to end on the CPU: synthetic 2-array PCM16 corpus ->
-DB JSON -> ``python -m pb_chime5_tpu_torch.scripts.run test_run`` ->
-WAVs, held against the JAX ``Enhancer`` on the same corpus (its fused
-kernel EM in interpret mode, uncached session audio); plus a
-subprocess check that a port run (``gss_enhance`` and the CLI on a
-corpus the port makes) imports neither JAX nor the JAX package.
+DB JSON -> ``python -m pb_chime5_tpu_torch.scripts.run test_run`` (the
+default, cached session path) -> WAVs, held against the JAX ``Enhancer``
+on the same corpus (its fused kernel EM in interpret mode, uncached
+session audio); the session-audio cache against the direct path inside
+the port (byte-identical WAVs) and the time-ordered dispatch against the
+JAX enhancer's order; plus a subprocess check that a port run
+(``gss_enhance`` and the CLI on a corpus the port makes) imports neither
+JAX nor the JAX package.
 
 Tolerance: the WAVs (peak-normalized int16 by ``dump_audio``) agree to
 2e-2 of full scale.  Both chains run the same float32 math in another
@@ -11,6 +14,7 @@ summation order and 3 EM iterations amplify that rounding (see
 tests/test_torch_gss.py); int16 quantization adds 3e-5.
 """
 
+import ast
 import subprocess
 import sys
 import textwrap
@@ -23,6 +27,7 @@ from pb_chime5_tpu.database.create_json import create_database
 from pb_chime5_tpu.io import dump_json, load_audio
 from pb_chime5_tpu.models.enhancer import Activity as JaxActivity
 from pb_chime5_tpu.models.enhancer import Enhancer as JaxEnhancer
+from pb_chime5_tpu.models.enhancer import get_enhancer as jax_get_enhancer
 from pb_chime5_tpu.models.gss import GssConfig as JaxGssConfig
 from pb_chime5_tpu.testing import create_synthetic_chime5
 from pb_chime5_tpu_torch.models.enhancer import get_enhancer
@@ -45,7 +50,15 @@ def corpus(tmp_path_factory):
     return json_path
 
 
-def test_cli_test_run_matches_jax_enhancer(corpus, tmp_path):
+def cache_stats(out):
+    """The dict of the last ``session-audio cache: {...}`` line."""
+    lines = [line for line in out.splitlines()
+             if line.startswith('session-audio cache: ')]
+    assert lines, out
+    return ast.literal_eval(lines[-1].split(': ', 1)[1])
+
+
+def test_cli_test_run_matches_jax_enhancer(corpus, tmp_path, capsys):
     exp = make_experiment(default_storage=tmp_path / 'runs')
     exp.run_commandline([
         'test_run', 'with', 'multiarray', 'session_id=S02',
@@ -53,6 +66,9 @@ def test_cli_test_run_matches_jax_enhancer(corpus, tmp_path):
         *(f'{k}={v!r}' for k, v in SETTINGS.items())])
     wavs = sorted((exp.run_dir / 'audio' / 'dev').glob('*.wav'))
     assert len(wavs) == 2, wavs
+    stats = cache_stats(capsys.readouterr().out)    # the cached path ran
+    assert stats['refills'] >= 1 and stats['direct'] == 0, stats
+    assert stats['hits'] + stats['refills'] == 2, stats
     import json
     assert json.loads((exp.run_dir / 'run.json').read_text())['status'] \
         == 'COMPLETED'
@@ -76,23 +92,87 @@ def test_cli_test_run_matches_jax_enhancer(corpus, tmp_path):
         np.testing.assert_allclose(got, want, atol=2e-2)
 
 
-def test_enhancer_rejects_unported_session_cache(corpus):
-    with pytest.raises(NotImplementedError):
-        get_enhancer(database_path=str(corpus), device='cpu',
-                     device_audio_cache=True)
+def test_device_audio_cache_byte_identical(corpus, tmp_path):
+    """The session with the session-audio cache writes WAVs byte-identical
+    to the same session without it (the twin of the JAX test of the same
+    name): the window holds the same file content, and the samples past
+    the valid length are zeroed where the direct path zero-pads."""
+    kw = dict(database_path=str(corpus), multiarray=True, device='cpu',
+              **SETTINGS)
+    off = get_enhancer(device_audio_cache=False, **kw)
+    off.enhance_session(['S02'], tmp_path / 'off', audio_dir_exist_ok=True)
+    on = get_enhancer(cache_window_seconds=20.0, **kw)
+    on.enhance_session(['S02'], tmp_path / 'on', audio_dir_exist_ok=True)
+    stats = on._audio_cache.stats
+    assert stats['hits'] > 0, stats          # the cache actually served
+    assert stats['refills'] == 1, stats      # 16 s session, 20 s window
+    assert stats['direct'] == 0, stats
+    wavs_off = sorted((tmp_path / 'off' / 'dev').glob('*.wav'))
+    wavs_on = sorted((tmp_path / 'on' / 'dev').glob('*.wav'))
+    assert [w.name for w in wavs_off] == [w.name for w in wavs_on]
+    assert len(wavs_off) >= 2
+    for a, b in zip(wavs_off, wavs_on):
+        assert a.read_bytes() == b.read_bytes(), a.name
+
+
+def test_session_dispatch_is_time_ordered(tmp_path):
+    """With the cache on, enhance_session reorders the static shard into
+    session-time order (the speaker-grouped iterator would traverse the
+    timeline once per speaker and refill the window each time), in the
+    JAX enhancer's order on the same corpus."""
+    from pb_chime5_tpu.testing import create_synthetic_chime5 as jax_corpus
+    from pb_chime5_tpu_torch.models.enhancer import _example_start_key
+    jax_corpus(tmp_path / 'c', session_ids=('S02',), duration_seconds=24.0,
+               utterances_per_speaker=2, num_arrays=2, seed=5)
+    json_path = tmp_path / 'chime5.json'
+    dump_json(create_database(tmp_path / 'c'), json_path)
+    kw = dict(database_path=str(json_path), wpe=False, multiarray=True,
+              **SETTINGS)
+    orders = {}
+    for name, factory, extra in (
+            ('port', get_enhancer, dict(device='cpu')),
+            ('jax', jax_get_enhancer, dict(device_audio_cache=True))):
+        enhancer = factory(**kw, **extra)
+        grouped = [ex['example_id'] for ex in enhancer.get_iterator('S02')]
+        order = []
+
+        def fake_prepare(ex, use_cache=False, order=order):
+            order.append(ex)
+            return None, None
+
+        # stub the device out: this tests the host loop's dispatch order
+        enhancer._prepare_example = fake_prepare
+        if name == 'port':
+            enhancer._dispatch_loaded = \
+                lambda ex, ra, obs: np.zeros(8, np.float32)
+            enhancer._pipeline.gather = lambda handle: handle
+        else:
+            enhancer._dispatch_loaded = \
+                lambda ex, ra, obs: (np.zeros(8, np.float32), None)
+            enhancer._finish_dispatched = lambda handle, trim: handle
+        enhancer.enhance_session(['S02'], tmp_path / name,
+                                 audio_dir_exist_ok=True)
+        orders[name] = [ex['example_id'] for ex in order]
+        if name == 'port':
+            assert len(order) == len(grouped) == 8
+            starts = [_example_start_key(ex) for ex in order]
+            assert starts == sorted(starts)
+            assert orders[name] != grouped   # the reorder did something
+    assert orders['port'] == orders['jax']
 
 
 def test_factory_keywords_match_jax():
     """The port's ``get_enhancer`` takes every keyword of the JAX one, in
     its order, and adds only ``device``; the CLI's config (derived from
-    the signature) holds them all.  The keywords the port accepts unused
-    keep the JAX defaults."""
+    the signature) holds them all.  The keywords of the compute dtype and
+    of the session-audio cache keep the JAX defaults."""
     import inspect
     from pb_chime5_tpu.models.enhancer import get_enhancer as jax_factory
     port = inspect.signature(get_enhancer).parameters
     jax_ = inspect.signature(jax_factory).parameters
     assert list(port) == list(jax_) + ['device']
-    for name in ('compute_dtype', 'cache_window_seconds', 'cache_prefetch'):
+    for name in ('compute_dtype', 'device_audio_cache',
+                 'cache_window_seconds', 'cache_prefetch'):
         assert port[name].default == jax_[name].default, name
     assert set(make_experiment().config) == set(port) | {'session_id'}
 
