@@ -101,7 +101,27 @@ Phases (the first failure ends the run with a non-zero exit code):
    test's pins as medians over seeds 0-2 (SIR gain bf > 1.5 dB, mask_mul
    > 10 dB; overlap STOI > 0.5; mask_mul - raw > 0.02; mask_mul - bf over
    the span > -0.05), the per-seed values and the 5-seed medians printed;
-   the default 20 + 1 EM printed beside them.
+   the default 20 + 1 EM printed beside them;
+10. the CHiME-6 entry points: a synthetic 120 s S02 session (6 arrays x 4
+   mics, PCM16, 12 utterances) made into a CHiME-6 tree by the port's
+   ``simulate_chime6_transcriptions``, its JSON by ``create_json
+   --chime6``, an RTTM of its annotations (as ci.sh makes it).  Track 1:
+   ``kaldi_run main with chime6=True multiarray`` (default config, D = 24)
+   as one job with the session-audio cache on, then off, then as 3 jobs;
+   gated: 20 / 20 / 1 / 3 launches an utterance and nothing else, 12
+   finite, non-silent WAVs of their utterances' length, ``hits > 0`` and
+   ``direct == 0``, the uncached and the 3 jobs' WAVs byte-identical to
+   the single cached job's.  Track 2: ``kaldi_run_rttm main`` at the
+   factory defaults (``outer_array_mics``: D = 12, float64 eager reads):
+   the same launch and WAV gates (``_U06.-`` ids); K1's S and den at the
+   first masked pass of its first utterance vs plain (phase 6's gates,
+   both timed), ``em_finalize`` on them, the MVDR solve's input (513 x
+   12 x 12) by the relative-mode inverse vs plain (phase 6's gates), the
+   first WPE iteration's R and P (d = 120, E = 12) solved by K5 and its
+   plain version (float64 residuals).  The first utterance of each track at a 2-iteration EM,
+   card vs the port's CPU path (<= 1e-2 of the peak).  Printed: each
+   pass's wall, utterances a second, xRT over emitted and processed
+   seconds, bytes read and uploaded, peak device memory.
 
 Before each path's run every kernel's launch count is set to 0, and it is
 read right after.  It imports the port (``pb_chime5_tpu_torch``) and the
@@ -110,7 +130,9 @@ kernel tests' input makers, never JAX or the JAX package
 
 The last three lines of standard output are the card's name and power
 limit, the kernels' JSON record and ``{"ok": true, "device": {...}}``.
-The record has one row per TPU kernel; K3's and K4's rows list the
+The record has one row per TPU kernel, with its launches on each path
+(``launches_per_path``: default, all-Pallas, CHiME-6 tracks 1 and 2);
+K3's and K4's rows list the
 Gauss-Jordan kernel's other entries under ``entries``; K5's row is its
 entry at the WPE solve (``hermitian_solve_chol``), with the TPU kernel's
 own function (``chol_solve_real_spd``) and its real-form wrapper under
@@ -943,43 +965,51 @@ def capture_mvdr_input(enhancer, ex):
     return linalg.equilibrate(A, B, **kw)[1]
 
 
-def mvdr_on_p06(torch, gj_inverse, enhancer, examples):
-    """Phase 6: the relative-mode inverse on the input the MVDR solve
-    gives it on the longest utterance at the default config (513
-    equilibrated noise covariances of 24 x 24, loaded at 64 eps) against
+def mvdr_vs_plain(torch, gj_inverse, B, label):
+    """The relative-mode inverse on ``B``, an MVDR solve's input, against
     its plain version, ``ops/linalg.py::gauss_jordan_inverse_and_logdet``
     (the inverse, the logdet and a float64 residual at the gates of the
-    EM-like batch), then its times there."""
+    EM-like batch); returns the largest absolute difference."""
     from pb_chime5_tpu_torch.ops import linalg
     from tests.test_torch_kernels_cuda import against_float64, inverse_errors
-    B = capture_mvdr_input(enhancer, max(examples, key=observation_seconds))
     kernel = gj_inverse.gauss_jordan_inverse_and_logdet
-    reference = linalg.gauss_jordan_inverse_and_logdet
     before = kernel.launches
     inv, ld = kernel(B)
     torch.cuda.synchronize()
     check(kernel.launches == before + 1,
           f'{kernel.__name__} did not count its launch')
-    inv_ref, ld_ref = reference(B)
+    inv_ref, ld_ref = linalg.gauss_jordan_inverse_and_logdet(B)
     rel, dld, max_abs = inverse_errors(inv, ld, inv_ref, ld_ref)
     res, dld64 = against_float64(B, inv, ld)
     res_ref, dld64_ref = against_float64(B, inv_ref, ld_ref)
     bit = torch.equal(inv, inv_ref) and torch.equal(ld, ld_ref)
-    print(f'{kernel.__name__} on P06\'s MVDR input {tuple(B.shape)}: vs '
+    print(f'{kernel.__name__} on {label} {tuple(B.shape)}: vs '
           f'plain rel_inv {rel:.3e} (<= {EM_INV_RTOL}), logdet {dld:.3e} '
           f'(<= {EM_LOGDET_ATOL}); vs float64: residual {res:.3e} (plain '
           f'{res_ref:.3e}), logdet {dld64:.3e} (plain {dld64_ref:.3e}); '
           f'bit-equal to plain: {bit}', flush=True)
     check(bool(torch.isfinite(inv).all() and torch.isfinite(ld).all()),
-          f'{kernel.__name__} output is not finite on P06\'s MVDR input')
+          f'{kernel.__name__} output is not finite on {label}')
     check(rel <= EM_INV_RTOL and dld <= EM_LOGDET_ATOL,
-          f'{kernel.__name__} disagrees with its plain version on P06\'s '
-          f'MVDR input')
+          f'{kernel.__name__} disagrees with its plain version on {label}')
     check(res <= 2 * res_ref + 1e-6,
           f'{kernel.__name__} has a larger residual than its plain version '
-          f'on P06\'s MVDR input')
+          f'on {label}')
+    return max_abs
+
+
+def mvdr_on_p06(torch, gj_inverse, enhancer, examples):
+    """Phase 6: the relative-mode inverse on the input the MVDR solve
+    gives it on the longest utterance at the default config (513
+    equilibrated noise covariances of 24 x 24, loaded at 64 eps) against
+    its plain version (:func:`mvdr_vs_plain`), then its times there."""
+    from pb_chime5_tpu_torch.ops import linalg
+    B = capture_mvdr_input(enhancer, max(examples, key=observation_seconds))
+    label = "P06's MVDR input"
+    max_abs = mvdr_vs_plain(torch, gj_inverse, B, label)
     return dict(max_abs_err=max_abs, **inverse_times(
-        torch, kernel, reference, B, "P06's MVDR input"))
+        torch, gj_inverse.gauss_jordan_inverse_and_logdet,
+        linalg.gauss_jordan_inverse_and_logdet, B, label))
 
 
 def k1_on_p06(torch, fused_em, gj_inverse, enhancer, examples):
@@ -1095,21 +1125,18 @@ def wpe_systems(torch, chol_solve, wpe_stats, enhancer, examples):
     G = {name: fn(R, P, relative_load=WPE_LOAD)
          for name, fn in solvers.items()}
     torch.cuda.synchronize()
-    # residuals of the loaded, equilibrated system, in float64
-    _, As, Bs, sinv = linalg.equilibrate(R, P, WPE_LOAD)
-    As, Bs = As.to(torch.complex128), Bs.to(torch.complex128)
-    ew = torch.linalg.eigvalsh(As)
+    ew = torch.linalg.eigvalsh(
+        linalg.equilibrate(R, P, WPE_LOAD)[1].to(torch.complex128))
     cond = (ew[:, -1] / ew[:, 0]).cpu().numpy()
     print(f'P06 WPE systems: F={R.shape[0]}, dim={R.shape[1]}, '
           f'D={P.shape[2]}, T={Y.shape[2]}; condition of the loaded, '
           f'equilibrated R: median {np.median(cond):.3e}, max '
           f'{cond.max():.3e}', flush=True)
     res = {}
-    for name, g in G.items():
-        check(bool(torch.isfinite(g).all()), f'{name}: G is not finite')
-        Xs = g.to(torch.complex128) / sinv[..., None].to(torch.complex128)
-        r = (torch.linalg.matrix_norm(As @ Xs - Bs)
-             / torch.linalg.matrix_norm(Bs)).cpu().numpy()
+    for name, r in solve_residuals(torch, linalg, R, P, G,
+                                   WPE_LOAD).items():
+        check(bool(torch.isfinite(G[name]).all()), f'{name}: G is not '
+                                                    f'finite')
         res[name] = float(r.max())
         print(f'  {name}: residual ||R_s G - P_s|| / ||P_s|| median '
               f'{np.median(r):.3e}, max {r.max():.3e}', flush=True)
@@ -1507,6 +1534,336 @@ def quality_path(torch):
 
 
 
+# phase 10: the CHiME-6 entry points.  The depth is cut to 120 s and 12
+# utterances so that the phase keeps inside the script's time limit; the
+# width (6 arrays x 4 mics, the default config) is not
+CHIME6_SESSION = dict(session_ids=('S02',), duration_seconds=120.0,
+                      utterances_per_speaker=3, num_arrays=6,
+                      num_array_mics=4, seed=6, pcm16=True)
+CHIME6_JOBS = 3
+CARD_VS_CPU_EM = 2    # EM iterations of the card-vs-CPU runs
+
+
+def make_chime6_corpus(root):
+    """CHIME6_SESSION -> a CHiME-6 tree (the port's
+    ``simulate_chime6_transcriptions``) -> its DB JSON (the port's
+    ``create_json --chime6``), and ci.sh's RTTM of the annotations; returns
+    (DB JSON, CHiME-6 dir, RTTM)."""
+    from pb_chime5_tpu_torch.database.create_json import (
+        main as create_json, to_samples)
+    from pb_chime5_tpu_torch.io import load_json
+    from pb_chime5_tpu_torch.scripts.simulate_chime6_transcriptions import (
+        main as simulate)
+    from pb_chime5_tpu_torch.testing import create_synthetic_chime5
+    create_synthetic_chime5(root / 'CHiME5', **CHIME6_SESSION)
+    with contextlib.redirect_stdout(io.StringIO()):
+        simulate(root / 'CHiME5', root / 'CHiME6')
+    create_json(['--database-path', str(root / 'CHiME6'),
+                 '--json-path', str(root / 'chime6.json'), '--chime6'])
+    lines = []
+    for t in load_json(root / 'CHiME5' / 'transcriptions' / 'dev' /
+                       'S02.json'):
+        s = to_samples(t['start_time']['original'])
+        e = to_samples(t['end_time']['original'])
+        lines.append(f"SPEAKER S02_U06 1 {s / 16000:.7f} "
+                     f"{(e - s) / 16000:.7f} <NA> <NA> {t['speaker']} <NA>")
+    (root / 'dev.rttm').write_text('\n'.join(lines))
+    return root / 'chime6.json', root / 'CHiME6', root / 'dev.rttm'
+
+
+def cli_pass(torch, counts, make_experiment, argv, storage, n,
+             n_wavs=None):
+    """One CLI run (``main``, on the card: the CLIs' default device) of
+    ``n`` utterances into ``storage``: its wall, launches (gated: 20 / 20 /
+    1 / 3 an utterance, nothing else), the WAVs there (``n_wavs``, by
+    default ``n``), printed output and peak device memory."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counts.reset()
+    text = io.StringIO()            # the CLI's configuration listing
+    start = time.perf_counter()
+    with contextlib.redirect_stdout(text):
+        make_experiment(default_storage=storage / 'runs').run_commandline(
+            ['main', 'with', f'storage_dir={storage}', *argv])
+    wall = time.perf_counter() - start
+    text = text.getvalue()
+    for line in text.splitlines():
+        if line.startswith('session-audio cache: '):
+            print(line, flush=True)
+    launches = counts.read()
+    check(launches == expected_launches(launches, n),
+          f'{argv}: launches {launches}, expected '
+          f'{expected_launches(launches, n)}')
+    wavs = sorted((storage / 'audio' / 'dev').glob('*.wav'))
+    n_wavs = n if n_wavs is None else n_wavs
+    check(len(wavs) == n_wavs, f'{argv}: {len(wavs)} WAVs, expected '
+                               f'{n_wavs}')
+    return dict(wall_s=wall, launches=launches, wavs=wavs, text=text,
+                peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+
+
+def check_wavs(wavs, num_samples, label):
+    """Each WAV finite, non-silent and of its utterance's length."""
+    import numpy as np
+    from pb_chime5_tpu_torch.io import load_audio
+    for wav in wavs:
+        x = load_audio(wav)
+        check(len(x) == num_samples[wav.stem],
+              f'{label} {wav.stem}: {len(x)} samples, expected '
+              f'{num_samples[wav.stem]}')
+        check(np.isfinite(x).all() and np.abs(x).max() > 0,
+              f'{label} {wav.stem} is not finite and non-silent')
+
+
+def path_numbers(label, p, n, emitted_s, processed_s, **extra):
+    """The printed (not gated) numbers of one path's pass."""
+    print(label, json.dumps({
+        'wall_s': p['wall_s'], 'utterances': n,
+        'utterances_per_s': n / p['wall_s'], 'emitted_s': emitted_s,
+        'processed_s': processed_s,
+        'xrt_emitted': emitted_s / p['wall_s'],
+        'xrt_processed': processed_s / p['wall_s'],
+        'peak_gib': p['peak_gib'], **extra}), flush=True)
+
+
+def card_vs_cpu_utterance(torch, factory, example_of, label):
+    """The first utterance through ``factory`` at CARD_VS_CPU_EM EM
+    iterations (all else default) on the card and on the port's CPU path:
+    within SCENE_ATOL of the peak."""
+    import numpy as np
+    outs = {}
+    for device in ('cuda', 'cpu'):
+        enhancer = factory(bss_iterations=CARD_VS_CPU_EM, device=device)
+        start = time.perf_counter()
+        outs[device] = enhancer.enhance_example(example_of(enhancer))
+        print(f'{label}, {CARD_VS_CPU_EM} EM iterations, {device}: '
+              f'{time.perf_counter() - start:.3f} s', flush=True)
+    err = float(np.abs(outs['cuda'] - outs['cpu']).max()
+                / np.abs(outs['cpu']).max())
+    print(f'{label}: card vs CPU {err:.3e} of the peak (<= {SCENE_ATOL})',
+          flush=True)
+    check(np.isfinite(outs['cuda']).all() and err <= SCENE_ATOL,
+          f'card and CPU paths disagree on {label}')
+
+
+def chime6_track1(torch, counts, db, work):
+    """Phase 10, track 1: ``kaldi_run main with chime6=True multiarray``
+    (default config, D = 24) as one job with the session-audio cache on
+    (the process's first run at these shapes), off, and on again, then as
+    CHIME6_JOBS jobs."""
+    import functools
+    from pb_chime5_tpu_torch.models.enhancer_chime6 import get_enhancer
+    from pb_chime5_tpu_torch.scripts.kaldi_run import make_experiment
+    argv = ['chime6=True', 'multiarray', 'session_id=S02',
+            f'database_path={db}']
+    kw = dict(multiarray=True, database_path=str(db))
+    examples = list(get_enhancer(**kw).get_iterator('S02'))
+    n = len(examples)
+    num_samples = {ex['example_id']: ex['num_samples_orig']
+                   for ex in examples}
+    read, upload, processed_s = observation_bytes(
+        get_enhancer(device_audio_cache=False, **kw), examples)
+    emitted_s = sum(num_samples.values()) / 16000
+
+    for label in ('on', 'off', 'on again'):
+        p = cli_pass(torch, counts, make_experiment,
+                     argv + (['device_audio_cache=False'] if label == 'off'
+                             else []), work / label, n)
+        if label == 'off':
+            path_numbers('track 1, cache off', p, n, emitted_s, processed_s,
+                         read_mb=read / 1e6, upload_mb=upload / 1e6)
+            continue
+        stats = cache_stats_line(p['text'])
+        check(stats['hits'] > 0 and stats['direct'] == 0,
+              f'track 1: cache stats {stats}: expected hits > 0, '
+              f'direct == 0')
+        path_numbers(f'track 1, cache {label}', p, n, emitted_s,
+                     processed_s, read_mb=stats['refill_mb'],
+                     upload_mb=stats['refill_mb'])
+        if label == 'on':
+            launches = p['launches']
+            print(f'track 1 launches: {launches}', flush=True)
+            check_wavs(p['wavs'], num_samples, 'track 1')
+    identical = all(same_wavs(work / 'on' / 'audio', work / label / 'audio')
+                    for label in ('off', 'on again'))
+    print(f'track 1: cached WAVs byte-identical to the direct ones: '
+          f'{identical}', flush=True)
+    check(identical, 'track 1: the cached runs wrote other WAVs than the '
+                     'direct one')
+    done = 0
+    for job_id in range(1, CHIME6_JOBS + 1):
+        mine = len(examples[job_id - 1::CHIME6_JOBS])
+        done += mine
+        cli_pass(torch, counts, make_experiment,
+                 argv + [f'job_id={job_id}',
+                         f'number_of_jobs={CHIME6_JOBS}'],
+                 work / 'jobs', mine, n_wavs=done)
+    identical = same_wavs(work / 'on' / 'audio', work / 'jobs' / 'audio')
+    print(f'track 1: jobs 1-{CHIME6_JOBS} of {CHIME6_JOBS} together: the '
+          f'single job\'s WAVs byte for byte: {identical}', flush=True)
+    check(identical, f'track 1: {CHIME6_JOBS} jobs wrote other WAVs than '
+                     f'one job')
+    card_vs_cpu_utterance(
+        torch, functools.partial(get_enhancer, **kw),
+        lambda e: e.get_iterator('S02')[examples[0]['example_id']],
+        f'track 1 utterance {examples[0]["example_id"]}')
+    check(not imported_jax(), 'the run imported jax or the JAX package')
+    return launches
+
+
+def capture_solve_input(enhancer, ex):
+    """The R and P of the first WPE iteration of
+    ``enhancer.enhance_example(ex)``: the WPE solve's inputs, captured by
+    a one-shot wrapper of the entry that ``ops/wpe.py`` calls (the solve
+    still runs the kernel)."""
+    from pb_chime5_tpu_torch.ops import wpe
+    real = wpe.hermitian_solve_chol
+    systems = []
+
+    def capture(A, B, **kw):
+        systems.append((A.clone(), B.clone(), kw))
+        return real(A, B, **kw)
+    wpe.hermitian_solve_chol = capture
+    try:
+        enhancer.enhance_example(ex)
+    finally:
+        wpe.hermitian_solve_chol = real
+    check(len(systems) == WPE_ITERATIONS, f'{len(systems)} WPE solves, '
+          f'expected {WPE_ITERATIONS}')
+    return systems[0]
+
+
+def solve_residuals(torch, linalg, R, P, G, load):
+    """{name: per-frequency residual ||R_s G - P_s|| / ||P_s||} of the
+    loaded, equilibrated system, in float64."""
+    _, As, Bs, sinv = linalg.equilibrate(R, P, load)
+    As, Bs = As.to(torch.complex128), Bs.to(torch.complex128)
+    out = {}
+    for name, g in G.items():
+        Xs = g.to(torch.complex128) / sinv[..., None].to(torch.complex128)
+        out[name] = (torch.linalg.matrix_norm(As @ Xs - Bs)
+                     / torch.linalg.matrix_norm(Bs)).cpu().numpy()
+    return out
+
+
+def rttm_kernels(torch, fused_em, gj_inverse, chol_solve, enhancer, ex):
+    """Phase 10, track 2's own inputs (D = 12): K1's at the first masked
+    E+M pass (S and den vs plain at the headline tolerances, both timed),
+    ``em_finalize`` on them (relative floor, vs the plain finalize), and
+    the MVDR solve's input (513 x 12 x 12) by the relative-mode inverse
+    (:func:`mvdr_vs_plain`), and the WPE solve's R and P of the first
+    iteration (d = 120, E = 12), by K5 and its plain version (float64
+    residuals: <= 2x plain + 1e-6)."""
+    import numpy as np
+    from pb_chime5_tpu_torch.ops import linalg
+    from tests.test_torch_fused_em_cuda import scatter_errors
+    inputs = capture_k1_inputs(enhancer, ex)
+    z, _, act, fm = inputs
+    F, T, D = z.shape
+    K = act.shape[0]
+    S, den = fused_em.fused_em_scatter(*inputs)
+    torch.cuda.synchronize()
+    S_ref, den_ref = fused_em.fused_em_scatter_reference(*inputs)
+    rel_S, rel_den, max_abs = scatter_errors(S, den, S_ref, den_ref)
+    print(f'K1 on track 2 (first masked pass): F={F}, T={T}, D={D}, K={K}: '
+          f'vs plain rel_S {rel_S:.3e} (<= {S_RTOL}), rel_den '
+          f'{rel_den:.3e} (<= {DEN_RTOL}), max_abs {max_abs:.3e}',
+          flush=True)
+    check(bool(torch.isfinite(S).all() and torch.isfinite(den).all()),
+          'K1 output on track 2 is not finite')
+    check(rel_S <= S_RTOL and rel_den <= DEN_RTOL,
+          'K1 disagrees with its plain version on track 2')
+    t = in_turns(torch, {
+        'plain': (lambda: fused_em.fused_em_scatter_reference(*inputs), 2),
+        'kernel': (lambda: fused_em.fused_em_scatter(*inputs), 10)})
+    print_times(f'K1 on track 2 at F,T,D,K=({F}, {T}, {D}, {K})', t,
+                *k1_bound(*inputs))
+    check_finalize(torch, gj_inverse, S, den, 'relative',
+                   "track 2's EM state")
+    del S, den, S_ref, den_ref
+    mvdr_vs_plain(torch, gj_inverse, capture_mvdr_input(enhancer, ex),
+                  "track 2's MVDR input")
+
+    R, P, kw = capture_solve_input(enhancer, ex)
+    G = {'chol': chol_solve.hermitian_solve_chol(R, P, **kw),
+         'chol_plain': chol_solve.hermitian_solve_chol_reference(R, P, **kw)}
+    torch.cuda.synchronize()
+    res = solve_residuals(torch, linalg, R, P, G, kw['relative_load'])
+    d = (torch.linalg.matrix_norm(G['chol'] - G['chol_plain'])
+         / torch.linalg.matrix_norm(G['chol_plain'])).cpu().numpy()
+    print(f'K5 on track 2 (first WPE iteration): F={R.shape[0]}, '
+          f'd={R.shape[1]}, E={P.shape[2]}; residual median / max: kernel '
+          f'{np.median(res["chol"]):.3e} / {res["chol"].max():.3e}, plain '
+          f'{np.median(res["chol_plain"]):.3e} / '
+          f'{res["chol_plain"].max():.3e}; |G - G_plain| / |G_plain| max '
+          f'{d.max():.3e}; bit-equal: '
+          f'{bool(torch.equal(G["chol"], G["chol_plain"]))}', flush=True)
+    check(bool(torch.isfinite(G['chol']).all()),
+          'K5 output on track 2 is not finite')
+    check(res['chol'].max() <= 2 * res['chol_plain'].max() + 1e-6,
+          'hermitian_solve_chol has a larger residual than its plain '
+          'version on track 2')
+
+
+def chime6_track2(torch, counts, kernels, chime6_dir, rttm):
+    """Phase 10, track 2: ``kaldi_run_rttm main`` at the factory defaults
+    (``multiarray='outer_array_mics'``, D = 12, float64 eager reads);
+    then K1, ``em_finalize``, the MVDR inverse and K5 on its own
+    inputs."""
+    import functools
+    from pb_chime5_tpu_torch.models.enhancer_rttm import get_enhancer
+    from pb_chime5_tpu_torch.scripts.kaldi_run_rttm import make_experiment
+    kw = dict(database_rttm=str(rttm), activity_rttm=str(rttm),
+              chime6_dir=str(chime6_dir))
+    enhancer = get_enhancer(**kw)
+    dataset = enhancer.get_dataset('S02')
+    n = len(dataset)
+    num_samples, channels = {}, set()
+    read = upload = host = processed = 0
+    for key in dataset.keys():      # the eager reads, as the pump makes them
+        audio = dataset[key]['audio_data']
+        num_samples[key] = dataset[key]['num_samples_orig']
+        channels.add(audio.shape[0])
+        host += audio.nbytes                        # float64 on the host
+        read += audio.size * 2                      # from PCM16 files
+        # uploaded as float32 (GssPipeline._normalize_obs), bucket-padded
+        upload += 4 * audio.shape[0] * enhancer._pipeline.bucket_length(
+            audio.shape[1])
+        processed += audio.shape[1]
+    check(all('_U06.-' in key for key in num_samples),
+          f'track 2 example ids: {list(num_samples)[:3]}')
+    work = chime6_dir.parent / 'rttm_out'
+    p = cli_pass(torch, counts, make_experiment,
+                 ['session_id=S02', f'chime6_dir={chime6_dir}',
+                  f'database_rttm={rttm}'], work, n)
+    print(f'track 2 launches: {p["launches"]}', flush=True)
+    check_wavs(p['wavs'], num_samples, 'track 2')
+    path_numbers('track 2', p, n, sum(num_samples.values()) / 16000,
+                 processed / 16000, channels=sorted(channels),
+                 read_mb=read / 1e6,
+                 host_float64_mb=host / 1e6, upload_mb=upload / 1e6)
+    ex = dataset[dataset.keys()[0]]
+    rttm_kernels(torch, *kernels, enhancer, ex)
+    card_vs_cpu_utterance(
+        torch, functools.partial(get_enhancer, **kw),
+        lambda e: e.get_dataset('S02')[ex['example_id']],
+        f'track 2 utterance {ex["example_id"]}')
+    check(not imported_jax(), 'the run imported jax or the JAX package')
+    return p['launches']
+
+
+def chime6_paths(torch, counts, kernels, work):
+    """Phase 10: the CHiME-6 entry points on the card; returns each
+    track's launches."""
+    start = time.perf_counter()
+    db, chime6_dir, rttm = make_chime6_corpus(work / 'chime6')
+    print(f'CHiME-6 corpus + DB JSON + RTTM: '
+          f'{time.perf_counter() - start:.2f} s', flush=True)
+    track1 = chime6_track1(torch, counts, db, work / 'chime6' / 'track1')
+    torch.cuda.empty_cache()
+    track2 = chime6_track2(torch, counts, kernels, chime6_dir, rttm)
+    return track1, track2
+
 class LaunchCounts:
     """The launch counters of every kernel entry of the port."""
 
@@ -1615,16 +1972,28 @@ def main():
         torch.cuda.empty_cache()
         phase('9 quality gate on the realistic scenes')
         quality_path(torch)
+        torch.cuda.empty_cache()
+        phase('10 the CHiME-6 paths: track 1 (kaldi_run chime6=True) and '
+              'track 2 (kaldi_run_rttm)')
+        track1_launches, track2_launches = chime6_paths(
+            torch, counts, (fused_em, gj_inverse, chol_solve), work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
     def row(name, source, replaces, launches, numbers, on_main_path=True,
             **extra):
+        entry = name.split(' ')[0]
+        per_path = {'default': default_launches,
+                    'all-Pallas': pallas_launches,
+                    'CHiME-6 track 1': track1_launches,
+                    'CHiME-6 track 2 (RTTM)': track2_launches}
         return {'name': name, 'route': 'cuda',
                 'source': f'pb_chime5_tpu_torch/csrc/{source}',
                 'replaces': f'pb_chime5_tpu/ops/pallas/{replaces}',
                 'launches': launches, **numbers,
-                'on_main_path': on_main_path, **extra}
+                'on_main_path': on_main_path,
+                'launches_per_path': {path: counted[entry] for path, counted
+                                      in per_path.items()}, **extra}
 
     def entry(name, launches, path):
         return {**results[name], 'launches': launches, 'path': path}

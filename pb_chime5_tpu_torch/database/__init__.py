@@ -1,7 +1,7 @@
 """JSON-backed example database -> lazily transformed example sequences.
 
-The part of ``pb_chime5_tpu.database`` (``JsonDatabase``,
-``lazy.LazyDataset``) that the session loop uses.  A database JSON has
+The part of ``pb_chime5_tpu.database`` (``DictDatabase``,
+``JsonDatabase``, ``lazy.LazyDataset``) that the session loops use.  A database JSON has
 the shape ``{"datasets": {name: {example_id: {...}}}, "alias": {name:
 [names]}}``; ``get_datasets`` returns a :class:`LazyDataset` over one or
 more (possibly aliased) datasets, with ``example_id`` and ``dataset``
@@ -13,7 +13,7 @@ from pathlib import Path
 
 from pb_chime5_tpu_torch.io import load_json
 
-__all__ = ['LazyDataset', 'JsonDatabase']
+__all__ = ['LazyDataset', 'DictDatabase', 'JsonDatabase']
 
 
 class LazyDataset:
@@ -34,6 +34,9 @@ class LazyDataset:
 
     def __len__(self):
         return len(self._keys)
+
+    def keys(self):
+        return self._keys
 
     def __iter__(self):
         for k in self._keys:
@@ -66,16 +69,15 @@ class LazyDataset:
                 for g, ex in groups.items()}
 
 
-class JsonDatabase:
-    def __init__(self, json_path):
-        self._json_path = Path(json_path)
-        self._loaded = None
+class DictDatabase:
+    """Datasets of a database dict (the subclasses make it)."""
+
+    def __init__(self, database_dict: dict):
+        self._database_dict = database_dict
 
     @property
     def database_dict(self):
-        if self._loaded is None:
-            self._loaded = load_json(self._json_path)
-        return self._loaded
+        return self._database_dict
 
     def _examples_for(self, name):
         db = self.database_dict
@@ -85,8 +87,7 @@ class JsonDatabase:
             try:
                 new = db['datasets'][n]
             except KeyError:
-                raise KeyError(
-                    f'{n!r} is not a dataset of {self._json_path}') from None
+                raise KeyError(f'{n!r} is not a dataset of {self}') from None
             overlap = examples.keys() & new.keys()
             assert not overlap, sorted(overlap)[:5]
             examples.update(new)
@@ -108,3 +109,18 @@ class JsonDatabase:
             assert not overlap, f'duplicate example ids: {sorted(overlap)[:5]}'
             examples.update(new)
         return LazyDataset(examples)
+
+
+class JsonDatabase(DictDatabase):
+    def __init__(self, json_path):
+        self._json_path = Path(json_path)
+        self._loaded = None
+
+    @property
+    def database_dict(self):
+        if self._loaded is None:
+            self._loaded = load_json(self._json_path)
+        return self._loaded
+
+    def __repr__(self):
+        return f'{type(self).__name__}({str(self._json_path)!r})'

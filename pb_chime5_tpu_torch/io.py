@@ -13,6 +13,7 @@ Same call semantics as ``pb_chime5_tpu.io`` for what the port uses:
 * ``dump_audio`` peak-normalizes with the (2^15 - 1) / 2^15 correction
   and writes 16 kHz int16 by default; ``dtype=None`` writes the array's
   own float or int type.
+* ``symlink(source, link_name, override=)`` makes a link idempotently.
 
 WAV support: PCM 16/32 bit and IEEE float 32/64, including
 WAVE_FORMAT_EXTENSIBLE headers.
@@ -20,13 +21,14 @@ WAVE_FORMAT_EXTENSIBLE headers.
 
 import datetime
 import json
+import os
 import struct
 from pathlib import Path
 
 import numpy as np
 
 __all__ = ['load_audio', 'audio_length', 'dump_audio', 'load_json',
-           'dump_json']
+           'dump_json', 'symlink']
 
 _FMT_PCM = 1
 _FMT_FLOAT = 3
@@ -146,6 +148,22 @@ def dump_audio(obj, path, *, dtype=np.int16, normalize=True):
     with open(Path(path).expanduser(), 'wb') as f:
         f.write(header)
         f.write(np.ascontiguousarray(data).tobytes())
+
+
+def symlink(source, link_name, *, override=False):
+    """Point ``link_name`` at ``source``; nothing to do when it already
+    does.  A link to elsewhere is replaced with ``override``, else
+    ``FileExistsError`` (reference io/file_handling.py:24-80)."""
+    link_name = Path(link_name).expanduser()
+    source = Path(source)
+    if link_name.is_symlink():
+        if os.readlink(link_name) == str(source):
+            return
+        if not override:
+            raise FileExistsError(
+                f'{link_name} already points to {os.readlink(link_name)}')
+        link_name.unlink()
+    link_name.symlink_to(source)
 
 
 class _Encoder(json.JSONEncoder):

@@ -218,7 +218,13 @@ class Enhancer:
 
     def get_iterator(self, session_id):
         return self.db.get_iterator_for_session(
-            session_id, context_samples=self.context_samples)
+            session_id,
+            audio_read=False,
+            adjust_times=True,
+            drop_unknown_target_speaker=True,
+            context_samples=self.context_samples,
+            equal_start_context=True,
+        )
 
     def enhance_session(
             self,
@@ -282,7 +288,7 @@ class Enhancer:
 
         def finish(example_id, session_id, handle):
             # writer thread: waits for the device result, writes the WAV
-            x_hat = self._pipeline.gather(handle)
+            x_hat = self._finish_dispatched(handle)
             assert x_hat.ndim == 1, x_hat.shape
             dataset = mapping.session_to_dataset[session_id]
             dump_audio(x_hat, audio_dir / dataset / f'{example_id}.wav')
@@ -387,8 +393,7 @@ class Enhancer:
 
     def enhance_example(self, ex):
         reference_array, obs = self._prepare_example(ex)
-        return self._pipeline.gather(
-            self._dispatch_loaded(ex, reference_array, obs))
+        return self._enhance_loaded(ex, reference_array, obs)
 
     def _example_activity(self, ex, reference_array):
         """Per-class sample activity on the reference array's clock
@@ -411,13 +416,16 @@ class Enhancer:
             stft_pad=True,
         )
         if self.bf_drop_context:
-            start_cf, end_cf = start_end_context_frames(
-                ex, stft_size=self.stft_size, stft_shift=self.stft_shift,
-                stft_fading=self.stft_fading)
+            start_cf, end_cf = self._context_frames(ex)
         else:
             start_cf = end_cf = 0
         target_index = tuple(ex_array_activity.keys()).index(speaker_id)
         return activity_freq, target_index, start_cf, end_cf
+
+    def _context_frames(self, ex):
+        return start_end_context_frames(
+            ex, stft_size=self.stft_size, stft_shift=self.stft_shift,
+            stft_fading=self.stft_fading)
 
     def _trim(self, ex, reference_array):
         if self.context_samples <= 0:
@@ -443,6 +451,14 @@ class Enhancer:
         return self._pipeline.dispatch(obs, activity_freq, target_index,
                                        **kw)
 
+    def _finish_dispatched(self, handle):
+        return self._pipeline.gather(handle)
+
+    def _enhance_loaded(self, ex, reference_array, obs):
+        """Everything after the audio read."""
+        return self._finish_dispatched(
+            self._dispatch_loaded(ex, reference_array, obs))
+
     def enhance_observation(self, obs, ex_array_activity, speaker_id,
                             ex=None):
         """Public per-observation entry point (reference core.py:514-571)."""
@@ -452,6 +468,20 @@ class Enhancer:
             obs, activity_freq, target_index,
             start_context_frames=start_cf, end_context_frames=end_cf)
         return x_hat
+
+
+def check_factory_options(wpe, bf, activity_garbage_class, compute_dtype):
+    """The checks every factory makes of its keywords."""
+    assert wpe is True or wpe is False, wpe
+    if str(bf).startswith('lcmv'):
+        # the LCMV beamformer treats the LAST mask class as the noise PSD
+        assert activity_garbage_class not in (False, None), (
+            'bf=lcmv requires a garbage (noise) class: set '
+            'activity_garbage_class=True')
+    if np.dtype(compute_dtype) != np.float32:
+        raise NotImplementedError(
+            f'compute_dtype={compute_dtype!r}: the port computes in float32 '
+            f'only (ROADMAP.md, Queue 1 item 5)')
 
 
 def get_enhancer(
@@ -500,18 +530,9 @@ def get_enhancer(
     raises (ROADMAP.md, Queue 1 item 5).  ``device_audio_cache``,
     ``cache_window_seconds`` and ``cache_prefetch`` switch and size the
     session-audio cache, with the JAX defaults (on, 180 s, prefetch on)."""
-    assert wpe is True or wpe is False, wpe
+    check_factory_options(wpe, bf, activity_garbage_class, compute_dtype)
     assert activity_path is None or activity_type == 'path', \
         (activity_path, activity_type)
-    if str(bf).startswith('lcmv'):
-        # the LCMV beamformer treats the LAST mask class as the noise PSD
-        assert activity_garbage_class not in (False, None), (
-            'bf=lcmv requires a garbage (noise) class: set '
-            'activity_garbage_class=True')
-    if np.dtype(compute_dtype) != np.float32:
-        raise NotImplementedError(
-            f'compute_dtype={compute_dtype!r}: the port computes in float32 '
-            f'only (ROADMAP.md, Queue 1 item 5)')
     return Enhancer(
         activity=Activity(
             type=activity_type,

@@ -3,14 +3,17 @@ errors, a sparse boolean activity track, and sample -> STFT-frame
 activity pooling.
 
 Counterparts of ``pb_chime5_tpu.utils`` (``Dispatcher``,
-``ArrayInterval``, ``activity_time_to_frequency``), reduced to what the
-enhancer uses.
+``ArrayInterval``, ``array_intervals_from_rttm``,
+``activity_time_to_frequency``), reduced to what the enhancers use.
 """
+
+import decimal
+from pathlib import Path
 
 import numpy as np
 
-__all__ = ['Dispatcher', 'ArrayInterval', 'segment_axis',
-           'activity_time_to_frequency']
+__all__ = ['Dispatcher', 'ArrayInterval', 'array_intervals_from_rttm',
+           'segment_axis', 'activity_time_to_frequency']
 
 
 class Dispatcher(dict):
@@ -29,13 +32,16 @@ class ArrayInterval:
     """Boolean 1-D array of ``shape`` stored as (start, stop) intervals:
     a 2.5 h session's activity track costs O(#utterances), not
     O(#samples).  Supports ``a[s:e] = 1 / 0`` and ``a[s:e]`` -> bool
-    array."""
+    array.  ``shape`` None leaves the length open (an RTTM track): then
+    every slice needs a stop, and no bound is checked."""
 
     def __init__(self, shape):
         if isinstance(shape, (int, np.integer)):
             shape = (int(shape),)
-        self.shape = tuple(int(s) for s in shape)
-        assert len(self.shape) == 1, self.shape
+        if shape is not None:
+            shape = tuple(int(s) for s in shape)
+            assert len(shape) == 1, shape
+        self.shape = shape
         self._intervals = []            # sorted, disjoint, non-touching
 
     def __len__(self):
@@ -44,14 +50,27 @@ class ArrayInterval:
     def _bounds(self, item):
         assert isinstance(item, slice) and item.step is None, item
         start = 0 if item.start is None else item.start
-        stop = self.shape[0] if item.stop is None else item.stop
-        assert 0 <= start <= self.shape[0] and 0 <= stop <= self.shape[0], \
-            (start, stop, self.shape)
+        if item.stop is None:
+            assert self.shape is not None, 'open-ended slice needs a shape'
+            stop = self.shape[0]
+        else:
+            stop = item.stop
+        assert start >= 0 and stop >= 0, (start, stop)
+        if self.shape is not None:
+            assert start <= self.shape[0] and stop <= self.shape[0], \
+                (start, stop, self.shape)
         return start, stop
 
     @property
     def intervals(self):
         return tuple(self._intervals)
+
+    normalized_intervals = intervals
+
+    def add_intervals(self, slices):
+        """Set each slice of ``slices`` to True."""
+        for item in slices:
+            self[item] = 1
 
     def __setitem__(self, item, value):
         start, stop = self._bounds(item)
@@ -84,6 +103,29 @@ class ArrayInterval:
             if s < e:
                 out[s - start:e - start] = True
         return out
+
+
+def array_intervals_from_rttm(rttm_file, shape=None, sample_rate=16000):
+    """An RTTM file -> ``{file_id: {speaker: ArrayInterval}}``.
+
+    A line reads ``SPEAKER <file-id> <chan> <begin> <duration> <NA> <NA>
+    <name> <NA>``, times in seconds; each must land on a whole sample
+    (reference intervall_array.py:96-99)."""
+    data = {}
+    for line in Path(rttm_file).read_text().splitlines():
+        if not line.strip():
+            continue
+        parts = line.split()
+        assert parts[0] == 'SPEAKER', parts
+        begin = decimal.Decimal(parts[3]) * sample_rate
+        end = begin + decimal.Decimal(parts[4]) * sample_rate
+        assert begin == int(begin), (line, begin)
+        assert end == int(end), (line, end)
+        speakers = data.setdefault(parts[1], {})
+        if parts[7] not in speakers:
+            speakers[parts[7]] = ArrayInterval(shape)
+        speakers[parts[7]][int(begin):int(end)] = 1
+    return data
 
 
 def segment_axis(x, length: int, shift: int, *, end='pad'):

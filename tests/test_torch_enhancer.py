@@ -5,8 +5,9 @@ on the same corpus (its fused kernel EM in interpret mode, uncached
 session audio); the session-audio cache against the direct path inside
 the port (byte-identical WAVs) and the time-ordered dispatch against the
 JAX enhancer's order; plus a subprocess check that a port run
-(``gss_enhance`` and the CLI on a corpus the port makes) imports neither
-JAX nor the JAX package.
+(``gss_enhance``, and the CLIs ``run``, ``kaldi_run chime6=True`` and
+``kaldi_run_rttm`` on a corpus the port makes) imports neither JAX nor the
+JAX package.
 
 Tolerance: the WAVs (peak-normalized int16 by ``dump_audio``) agree to
 2e-2 of full scale.  Both chains run the same float32 math in another
@@ -174,7 +175,8 @@ def test_factory_keywords_match_jax():
     for name in ('compute_dtype', 'device_audio_cache',
                  'cache_window_seconds', 'cache_prefetch'):
         assert port[name].default == jax_[name].default, name
-    assert set(make_experiment().config) == set(port) | {'session_id'}
+    assert set(make_experiment().config) == set(port) | {'session_id',
+                                                         'chime6'}
 
 
 def test_factory_accepts_the_jax_keywords_at_their_defaults(corpus):
@@ -226,6 +228,38 @@ def test_port_run_imports_no_jax():
             f'database_path={root}/db.json', 'context_samples=4000',
             'bss_iterations=2', 'wpe_tabs=2', 'length_buckets=(48000,)'])
         assert len(list((exp.run_dir / 'audio' / 'dev').glob('*.wav'))) == 2
+
+        from pb_chime5_tpu_torch.database.create_json import to_samples
+        from pb_chime5_tpu_torch.io import load_json
+        from pb_chime5_tpu_torch.scripts import kaldi_run, kaldi_run_rttm
+        from pb_chime5_tpu_torch.scripts.simulate_chime6_transcriptions \
+            import main as simulate
+        simulate(root, root / 'CHiME6')
+        dump_json(create_database(root / 'CHiME6', chime6=True),
+                  root / 'chime6.json')
+        lines = []
+        for t in load_json(root / 'transcriptions' / 'dev' / 'S02.json'):
+            s = to_samples(t['start_time']['original'])
+            e = to_samples(t['end_time']['original'])
+            lines.append(f"SPEAKER S02_U06 1 {s / 16000:.7f} "
+                         f"{(e - s) / 16000:.7f} <NA> <NA> {t['speaker']} "
+                         f"<NA>")
+        (root / 'dev.rttm').write_text('\\n'.join(lines))
+        cheap = ['device=cpu', 'context_samples=4000', 'bss_iterations=2',
+                 'wpe=False', 'length_buckets=(48000,)']
+        kaldi_run.make_experiment(default_storage=root / 'runs') \
+            .run_commandline([
+                'test_run', 'with', 'chime6=True', 'session_id=S02',
+                f'database_path={root}/chime6.json',
+                f'storage_dir={root}/kaldi', *cheap])
+        kaldi_run_rttm.make_experiment(default_storage=root / 'runs') \
+            .run_commandline([
+                'test_run', 'with', 'session_id=S02',
+                f'chime6_dir={root}/CHiME6', f'database_rttm={root}/dev.rttm',
+                f'storage_dir={root}/rttm', *cheap])
+        for out in ('kaldi', 'rttm'):
+            assert len(list((root / out / 'audio' / 'dev').glob('*.wav'))) \
+                == 2, out
         loaded = sorted({m.split('.')[0] for m in sys.modules})
         assert 'jax' not in loaded and 'pb_chime5_tpu' not in loaded, loaded
         print('NO_JAX_OK')

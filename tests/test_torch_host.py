@@ -111,7 +111,8 @@ def test_session_iterator_matches_jax(corpus, context_samples):
     """The enhancer's reading of a session (the JAX enhancer's arguments,
     models/enhancer.py ``get_iterator``)."""
     got = Chime5(corpus['db']).get_iterator_for_session(
-        'S02', context_samples=context_samples)
+        'S02', adjust_times=True, drop_unknown_target_speaker=True,
+        context_samples=context_samples, equal_start_context=True)
     want = JaxChime5(corpus['db']).get_iterator_for_session(
         'S02', adjust_times=True, drop_unknown_target_speaker=True,
         context_samples=context_samples, equal_start_context=True)
