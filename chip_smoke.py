@@ -121,7 +121,33 @@ Phases (the first failure ends the run with a non-zero exit code):
    plain version (float64 residuals).  The first utterance of each track at a 2-iteration EM,
    card vs the port's CPU path (<= 1e-2 of the peak).  Printed: each
    pass's wall, utterances a second, xRT over emitted and processed
-   seconds, bytes read and uploaded, peak device memory.
+   seconds, bytes read and uploaded, peak device memory;
+11. the per-frequency ('xla') EM, float64 and the debug twin: P06 through
+   ``GssConfig(bss_em_backend='xla')`` (float32, default config; gated:
+   K1 0, ``em_finalize`` 0, the relative inverse 21 (20 M-steps + the
+   MVDR solve), K5 3; wall and stages beside the default config's); on
+   P06's WPE output the EMs alone, each timed with its peak memory and
+   launches: K1's, the 'xla' one, the chunked one (``em_chunk_size=256``:
+   the relative inverse 1, ``em_finalize`` 19), both 'xla' ones in
+   float64 (no launch); the chunked posteriors against the unfused ones in
+   float64 (<= 1e-6), the 'xla' masks against K1's at 2 + 0 (<= 3e-2,
+   PARITY.md's stress leg); the complex128 WPE solve at d = 240 (K5's
+   plain version, the floored panels) timed beside ``cholesky_ex`` +
+   ``cholesky_solve`` and ``linalg.hermitian_solve``, residuals against
+   cuSOLVER's; ``get_enhancer(compute_dtype=np.float64)`` on P06 (no
+   kernel launch, wall, stages, float64 vs float32 printed) and the small
+   scene card vs CPU in float64 at the default EM (<= 1e-6 of the peak);
+   one ``enhance_session`` of phase 8's session in float64 with the cache
+   on (wall, utterances a second, xRT, bytes, peak; no launch); phase 9's
+   scenes in float64 at 10 and 20 + 1 iterations (finite; medians beside
+   the float32 ones, not gated); ``Enhancer.debug_example`` on P06 (shapes
+   (20, 513, 5), weights summing to 1 within 1e-5, condition >= 0.99,
+   entropy in [0, log K], masks within 1e-6 of the 'xla' chain's); the
+   energy masks (share of entries card != CPU <= 1e-3) and the from-mask
+   beamformers and the two unsupervised MVDR wrappers card vs CPU on the
+   small scene's STFT (<= 1e-4 of the peak in complex128, and for GEV and
+   LCMV, which compute in float64, in complex64 too; complex64 MVDR
+   <= 1e-2, the float32 chain gate).
 
 Before each path's run every kernel's launch count is set to 0, and it is
 read right after.  It imports the port (``pb_chime5_tpu_torch``) and the
@@ -131,7 +157,8 @@ kernel tests' input makers, never JAX or the JAX package
 The last three lines of standard output are the card's name and power
 limit, the kernels' JSON record and ``{"ok": true, "device": {...}}``.
 The record has one row per TPU kernel, with its launches on each path
-(``launches_per_path``: default, all-Pallas, CHiME-6 tracks 1 and 2);
+(``launches_per_path``: default, all-Pallas, CHiME-6 tracks 1 and 2, the
+'xla' EM, float64);
 K3's and K4's rows list the
 Gauss-Jordan kernel's other entries under ``entries``; K5's row is its
 entry at the WPE solve (``hermitian_solve_chol``), with the TPU kernel's
@@ -706,17 +733,19 @@ def small_scene(seconds=3.0, D=4, seed=0):
     return obs.astype(np.float32), activity, (b0, b1)
 
 
-def card_vs_cpu(torch, cfg, label, separates=True, gated=True):
-    """The whole chain on a small scene, on the card and on the CPU path
-    (the kernels' plain versions): waveforms within SCENE_ATOL of the
-    peak, and, where the beamformer ``separates``, the target-only vs
-    interferer-only energy ratio raised by > 30x (the bound
+def card_vs_cpu(torch, cfg, label, separates=True, gated=True,
+                dtype='float32', atol=SCENE_ATOL):
+    """The whole chain on a small scene in ``dtype``, on the card and on
+    the CPU path (the kernels' plain versions): waveforms within ``atol``
+    of the peak, and, where the beamformer ``separates``, the target-only
+    vs interferer-only energy ratio raised by > 30x (the bound
     tests/test_gss_pipeline.py holds the JAX chain to).  Not ``gated``:
     both printed, only a finite output required."""
     import numpy as np
     from pb_chime5_tpu_torch.models.gss import gss_enhance
     from pb_chime5_tpu_torch.utils import activity_time_to_frequency
     obs, activity, (b0, b1) = small_scene()
+    obs = obs.astype(dtype)
     act = activity_time_to_frequency(activity, cfg.stft_size, cfg.stft_shift,
                                      stft_fading=True, stft_pad=True)
     outs = {}
@@ -730,10 +759,10 @@ def card_vs_cpu(torch, cfg, label, separates=True, gated=True):
     gain = sir_gain(obs, x, b0, b1)
     separates = separates and gated
     print(f'small scene, {label}: card vs CPU {err:.3e} of the peak '
-          f'{f"(<= {SCENE_ATOL})" if gated else "(not gated)"}; SIR gain '
+          f'{f"(<= {atol})" if gated else "(not gated)"}; SIR gain '
           f'{gain:.1f}x{" (> 30)" if separates else " (not gated)"}',
           flush=True)
-    check(np.isfinite(x).all() and (err <= SCENE_ATOL or not gated),
+    check(np.isfinite(x).all() and (err <= atol or not gated),
           f'card and CPU paths disagree on the small scene ({label})')
     check(gain > 30 or not separates,
           f'the chain does not separate the small scene ({label})')
@@ -1264,6 +1293,8 @@ SESSION = dict(session_ids=('S02',), duration_seconds=420.0,
 RACE_WINDOW_SECONDS = 60.0    # a refill every few utterances
 QUALITY_SEEDS = (0, 1, 2, 3, 4)
 GATED_SEEDS = (0, 1, 2)       # tests/test_realistic_scene.py's pins
+QUALITY_CONFIGS = (('10-iteration EM', dict(bss_iterations=10)),
+                   ('default 20 + 1 EM', {}))
 
 
 def expected_launches(launches, n):
@@ -1338,7 +1369,7 @@ def settled_stats(cache):
     return dict(cache.stats)
 
 
-def session_pass(torch, counts, enhancer, n, out):
+def session_pass(torch, counts, enhancer, n, out, expected=None):
     """One ``enhance_session`` of the whole session into ``out``: its
     wall, launches (gated), the cache's stats line of this call, the bytes
     it moved with the prefetched window that its end leaves (charged to
@@ -1346,7 +1377,8 @@ def session_pass(torch, counts, enhancer, n, out):
     chains' stage windows (``record_stage_times``: from each
     ``gss_enhance``'s first event to its last on the stream) with the
     share of the wall outside them, where the card waits between
-    utterances."""
+    utterances.  ``expected``: the launches (default: the default
+    config's)."""
     from pb_chime5_tpu_torch.models import gss
     cache = enhancer._audio_cache
     before = settled_stats(cache) if cache is not None else None
@@ -1361,9 +1393,10 @@ def session_pass(torch, counts, enhancer, n, out):
         wall = time.perf_counter() - start
     chain_s = sum(sum(t.values()) for t in times) / 1e3
     launches = counts.read()
-    check(launches == expected_launches(launches, n),
-          f'session pass launches {launches}, expected '
-          f'{expected_launches(launches, n)}')
+    if expected is None:
+        expected = expected_launches(launches, n)
+    check(launches == expected,
+          f'session pass launches {launches}, expected {expected}')
     wavs = sorted((out / 'dev').glob('*.wav'))
     check(len(wavs) == n, f'{len(wavs)} WAVs, expected {n}')
     numbers = dict(wall_s=wall, chain_s=chain_s,
@@ -1425,7 +1458,8 @@ def refill_anatomy(torch, cache, spans):
 def session_path(torch, counts, work):
     """Phase 8: the session path as users run it (``enhance_session`` at
     the default config, 6 arrays x 4 mics) on bench.py's 420 s session,
-    with the session-audio cache on and off in turns."""
+    with the session-audio cache on and off in turns; returns (DB JSON,
+    utterances, emitted and processed seconds)."""
     from pb_chime5_tpu_torch.models.enhancer import get_enhancer
     start = time.perf_counter()
     db = make_session_corpus(work / 'session')
@@ -1486,6 +1520,7 @@ def session_path(torch, counts, work):
     refill_anatomy(torch, enhancers['on']._audio_cache,
                    enhancers['on']._cache_spans(ex, ex['reference_array']))
     check(not imported_jax(), 'the run imported jax or the JAX package')
+    return db, n, emitted_s, valid_s
 
 
 def quality_path(torch):
@@ -1493,7 +1528,8 @@ def quality_path(torch):
     the realistic scenes of QUALITY_SEEDS (made in parallel processes)
     through ``gss_enhance`` on CUDA at a 10-iteration EM, postfilter None
     and 'mask_mul', gated on the JAX test's pins as medians over
-    GATED_SEEDS; the default 20 + 1 EM printed beside it."""
+    GATED_SEEDS; the default 20 + 1 EM printed beside it.  Returns the
+    scenes and {config: medians over GATED_SEEDS}."""
     import concurrent.futures
     import functools
     import multiprocessing
@@ -1510,16 +1546,16 @@ def quality_path(torch):
             [np.random.default_rng(seed) for seed in QUALITY_SEEDS]))
     print(f'{len(scenes)} realistic scenes: '
           f'{time.perf_counter() - start:.2f} s', flush=True)
-    gated = None
-    for label, config in (('10-iteration EM', dict(bss_iterations=10)),
-                          ('default 20 + 1 EM', {})):
+    gated, by_config = None, {}
+    for label, config in QUALITY_CONFIGS:
         start = time.perf_counter()
         per_seed = {seed: chain_quality(scene, 'cuda', **config)
                     for seed, scene in zip(QUALITY_SEEDS, scenes)}
         for seed, q in per_seed.items():
             print('quality', json.dumps({'config': label, 'seed': seed, **q}),
                   flush=True)
-        med3 = medians({s: per_seed[s] for s in GATED_SEEDS})
+        med3 = by_config[label] = medians({s: per_seed[s]
+                                           for s in GATED_SEEDS})
         print('quality medians', json.dumps({
             'config': label, f'seeds {list(GATED_SEEDS)}': med3,
             f'seeds {list(QUALITY_SEEDS)}': medians(per_seed),
@@ -1531,6 +1567,7 @@ def quality_path(torch):
     failed = {k: v for k, v in gated.items() if not v > PINS[k]}
     check(not failed, f'quality pins missed on the card: {failed}')
     check(not imported_jax(), 'the run imported jax or the JAX package')
+    return scenes, by_config
 
 
 
@@ -1864,6 +1901,377 @@ def chime6_paths(torch, counts, kernels, work):
     track2 = chime6_track2(torch, counts, kernels, chime6_dir, rttm)
     return track1, track2
 
+# phase 11: the per-frequency ('xla') EM, float64 and the debug twin
+XLA_CHUNK = 256               # em_chunk_size of the chunked EM
+XLA_VS_K1_EM = dict(iterations=2, iterations_post=0)
+XLA_VS_K1_ATOL = 3e-2         # PARITY.md's stress leg (2 + 0 EM)
+CHUNK_F64_ATOL = 1e-6         # chunked vs unfused posteriors, float64
+F64_SCENE_ATOL = 1e-6         # float64 small scene card vs CPU, of the peak
+DEBUG_MASK_ATOL = 1e-6        # debug twin vs the 'xla' chain's masks
+FRONT_END_ATOL = 1e-4         # from-mask beamformers card vs CPU, of the
+#                               peak (complex128; GEV / LCMV in any dtype)
+MASK_SHARE = 1e-3             # energy masks: share of entries card != CPU
+
+
+def capture_em_input(enhancer, ex):
+    """The (Y (F, T, D), activity (K, T), frame mask) that
+    ``enhancer.enhance_example(ex)`` hands the EM (after WPE), captured by
+    a one-shot wrapper of the call in ``models/gss.py``."""
+    from pb_chime5_tpu_torch.models import gss
+    real = gss.cacgmm_posteriors
+    inputs = []
+
+    def capture(Y, activity, **kw):
+        inputs.append((Y.clone(), activity.clone(), kw['frame_mask']))
+        return real(Y, activity, **kw)
+    gss.cacgmm_posteriors = capture
+    try:
+        enhancer.enhance_example(ex)
+    finally:
+        gss.cacgmm_posteriors = real
+    return inputs[0]
+
+
+def em_run(torch, counts, Y, act, fm, **config):
+    """One ``cacgmm_posteriors`` on the card: (posteriors, launches, ms,
+    peak GiB above what was allocated before it)."""
+    from pb_chime5_tpu_torch.ops.cacgmm import (
+        CacgmmConfig, cacgmm_posteriors)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    counts.reset()
+    start = time.perf_counter()
+    out = cacgmm_posteriors(Y, act, config=CacgmmConfig(**config),
+                            frame_mask=fm)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - start) * 1e3
+    launches = {k: v for k, v in counts.read().items() if v}
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    return out, launches, ms, peak
+
+
+def xla_em_on_p06(torch, counts, enhancer, examples):
+    """Phase 11.1-11.2: P06 through ``GssConfig(bss_em_backend='xla')``
+    (float32, default config: launches, wall, stages), then the EMs on
+    P06's WPE output: unfused and chunked, float32 and float64 (peaks,
+    times, launches), the 'xla' masks against K1's at 2 + 0 and the
+    chunked posteriors against the unfused ones in float64.  Returns the
+    'xla' path's launches."""
+    from pb_chime5_tpu_torch.models import gss
+    from pb_chime5_tpu_torch.models.gss import GssConfig
+    ex = max(examples, key=observation_seconds)
+    xla = dataclasses.replace(
+        enhancer, gss_config=GssConfig(bss_em_backend='xla'))
+    xla.enhance_example(ex)                   # warm-up
+    torch.cuda.synchronize()
+    counts.reset()
+    start = time.perf_counter()
+    x = xla.enhance_example(ex)
+    wall = time.perf_counter() - start
+    launches = counts.read()
+    expected = {**dict.fromkeys(launches, 0),
+                'gauss_jordan_inverse_and_logdet': EM_PASSES + MVDR_SOLVES,
+                'hermitian_solve_chol': WPE_ITERATIONS}
+    print(f"'xla' EM path launches: {launches}", flush=True)
+    check(launches == expected,
+          f"'xla' EM path launches {launches}, expected {expected}")
+    check_wav(ex, x)
+    print(f"'xla' EM utterance {ex['example_id']}: wall {wall:.4f} s, "
+          f"xRT observation {observation_seconds(ex) / wall:.3f}",
+          flush=True)
+    for label, e in [('default', enhancer), ('xla', xla)] * 2:
+        print('stages', json.dumps({'utterance': ex['example_id'],
+                                    'config': label,
+                                    **stage_times(gss, e, ex)}), flush=True)
+
+    Y, act, fm = capture_em_input(enhancer, ex)
+    print(f'P06 EM input: Y {tuple(Y.shape)} {Y.dtype}, activity '
+          f'{tuple(act.shape)}', flush=True)
+    runs = {}
+    for label, dtype, config in (
+            ('K1 (fused)', torch.complex64, {}),
+            ('xla', torch.complex64, dict(em_backend='xla')),
+            ('xla chunked', torch.complex64,
+             dict(em_backend='xla', em_chunk_size=XLA_CHUNK)),
+            ('xla float64', torch.complex128, dict(em_backend='xla')),
+            ('xla chunked float64', torch.complex128,
+             dict(em_backend='xla', em_chunk_size=XLA_CHUNK))):
+        em_run(torch, counts, Y.to(dtype), act, fm, **config)    # warm-up
+        out, counted, ms, peak = em_run(torch, counts, Y.to(dtype), act, fm,
+                                        **config)
+        runs[label] = out
+        print('EM run', json.dumps({'em': label, 'ms': ms, 'peak_gib': peak,
+                                    'launches': counted}), flush=True)
+        if label == 'xla':
+            check(counted == {'gauss_jordan_inverse_and_logdet': EM_PASSES},
+                  f"'xla' EM launches {counted}")
+        if label == 'xla chunked':
+            check(counted == {'gauss_jordan_inverse_and_logdet': 1,
+                              'em_finalize': EM_PASSES - 1},
+                  f'chunked EM launches {counted}')
+        if dtype == torch.complex128:
+            check(counted == {}, f'{label}: launches {counted}')
+    err = float((runs['xla chunked float64'] - runs['xla float64']).abs()
+                .max())
+    print(f'chunked vs unfused EM, float64, P06: posteriors {err:.3e} '
+          f'(<= {CHUNK_F64_ATOL})', flush=True)
+    check(err <= CHUNK_F64_ATOL, 'the chunked EM disagrees with the '
+                                 'unfused one in float64')
+    short = {label: em_run(torch, counts, Y, act, fm, **XLA_VS_K1_EM,
+                           **config)[0]
+             for label, config in (('K1', {}),
+                                   ('xla', dict(em_backend='xla')))}
+    err = float((short['xla'] - short['K1']).abs().max())
+    print(f"'xla' vs K1 EM masks at 2 + 0, P06: {err:.3e} "
+          f'(<= {XLA_VS_K1_ATOL})', flush=True)
+    check(err <= XLA_VS_K1_ATOL, "the 'xla' EM disagrees with K1's")
+    f32_vs_f64 = float((runs['xla'].double() - runs['xla float64']).abs()
+                       .max())
+    print(f"'xla' EM float32 vs float64 at 20 + 1, P06: posteriors "
+          f'{f32_vs_f64:.3e} (not gated)', flush=True)
+    return launches, xla
+
+
+def float64_solve_times(torch, linalg, chol_solve, enhancer, ex):
+    """The complex128 WPE solve at d = 240 (P06's first WPE iteration's R
+    and P, in complex128): the chosen route ``wpe.solve_floored``
+    (``cholesky_ex`` + ``cholesky_solve``, the host reading which
+    frequencies need JAX's floored panels), beside K5's plain version on
+    every frequency (the floored panels, no host read), ``cholesky_ex`` +
+    ``cholesky_solve`` alone and ``linalg.hermitian_solve``, in turns;
+    residuals in float64 against cuSOLVER's."""
+    from pb_chime5_tpu_torch.ops import wpe
+    R, P, kw = capture_solve_input(enhancer, ex)
+    R, P = R.to(torch.complex128), P.to(torch.complex128)
+    load = kw['relative_load']
+    _, As, Bs, _ = linalg.equilibrate(R, P, load)
+
+    def library():
+        return torch.cholesky_solve(Bs, torch.linalg.cholesky_ex(As)[0])
+    fns = {'solve_floored (chosen)': (lambda: wpe.solve_floored(
+               R, P, relative_load=load), 5),
+           'panels': (lambda: chol_solve.hermitian_solve_chol_reference(
+               R, P, relative_load=load), 2),
+           'cholesky_ex + cholesky_solve': (library, 5),
+           'linalg.hermitian_solve': (lambda: linalg.hermitian_solve(
+               R, P, relative_load=load), 5)}
+    times = in_turns(torch, fns, rounds=1)
+    G = {name: fns[name][0]() for name in ('solve_floored (chosen)',
+                                           'panels')}
+    G['cuSOLVER'] = linalg.hermitian_solve(R, P, relative_load=load)
+    res = {k: float(v.max()) for k, v in solve_residuals(
+        torch, linalg, R, P, G, load).items()}
+    print('complex128 WPE solve at d = 240', json.dumps({
+        'shape': list(R.shape), 'E': P.shape[-1], 'ms': times,
+        'max_residual': res}), flush=True)
+    check(max(res['solve_floored (chosen)'], res['panels'])
+          <= 2 * res['cuSOLVER'] + 1e-9,
+          "the float64 WPE solve has a larger residual than cuSOLVER's")
+
+
+def float64_enhancer(torch, counts, db, examples, enhancer32):
+    """Phase 11.3: ``get_enhancer(compute_dtype=np.float64)`` on phase 4's
+    corpus: P06's wall, stages, no kernel launch, float64 vs float32
+    output; the small scene card vs CPU in float64 at the default EM."""
+    import numpy as np
+    from pb_chime5_tpu_torch.models import gss
+    from pb_chime5_tpu_torch.models.enhancer import get_enhancer
+    from pb_chime5_tpu_torch.models.gss import GssConfig
+    enhancer = get_enhancer(multiarray=True, database_path=str(db),
+                            compute_dtype=np.float64, device='cuda')
+    ex = max(examples, key=observation_seconds)
+    enhancer.enhance_example(ex)              # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counts.reset()
+    start = time.perf_counter()
+    x = enhancer.enhance_example(ex)
+    wall = time.perf_counter() - start
+    launches = counts.read()
+    print(f'float64 path launches: {launches}', flush=True)
+    check(not any(launches.values()), f'float64 launched kernels: '
+                                      f'{launches}')
+    check_wav(ex, x)
+    x32 = enhancer32.enhance_example(ex)
+    err = np.abs(x - x32).max() / np.abs(x).max()
+    print(f"float64 utterance {ex['example_id']}: wall {wall:.4f} s, xRT "
+          f"observation {observation_seconds(ex) / wall:.3f}, peak "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB; float64 "
+          f"vs float32 output {err:.3e} of the peak (not gated)", flush=True)
+    print('stages', json.dumps({'utterance': ex['example_id'],
+                                'config': 'float64',
+                                **stage_times(gss, enhancer, ex)}),
+          flush=True)
+    card_vs_cpu(torch, GssConfig(), 'float64, default EM', dtype='float64',
+                atol=F64_SCENE_ATOL)
+    return launches
+
+
+def float64_session(torch, counts, db, n, emitted_s, valid_s, work):
+    """Phase 11.4: one ``enhance_session`` of phase 8's session in
+    float64 with the session-audio cache on, after one warm-up utterance:
+    wall, utterances a second, xRT, bytes, peak."""
+    import numpy as np
+    from pb_chime5_tpu_torch.models.enhancer import get_enhancer
+    enhancer = get_enhancer(multiarray=True, database_path=str(db),
+                            compute_dtype=np.float64, device='cuda')
+    first = list(enhancer.get_iterator('S02'))[0]
+    enhancer.enhance_example(first)           # warm-up, direct
+    p = session_pass(torch, counts, enhancer, n, work / 'float64',
+                     expected={name: 0 for name in counts.read()})
+    read_mb = p['moved_mb']
+    print('float64 session pass', json.dumps({
+        **{k: v for k, v in p.items() if k != 'stats'}, 'stats': p['stats'],
+        'utterances': n, 'utterances_per_s': n / p['wall_s'],
+        'xrt_emitted': emitted_s / p['wall_s'],
+        'xrt_processed': valid_s / p['wall_s'],
+        'read_mb': read_mb, 'upload_mb': read_mb}), flush=True)
+    check(p['stats']['direct'] == 0, f'float64 session: {p["stats"]}')
+
+
+def float64_quality(torch, scenes, float32_medians):
+    """Phase 11.5: phase 9's scenes in float64 at 10 and 20 + 1 EM
+    iterations: finite output (gated), medians over GATED_SEEDS printed
+    beside the float32 ones (not gated)."""
+    import numpy as np
+    from tests.test_torch_realistic_scene import chain_quality, medians
+    for label, config in QUALITY_CONFIGS:
+        start = time.perf_counter()
+        per_seed = {seed: chain_quality(scene, 'cuda', dtype=np.float64,
+                                        **config)
+                    for seed, scene in zip(QUALITY_SEEDS, scenes)}
+        for seed, q in per_seed.items():
+            print('quality float64', json.dumps(
+                {'config': label, 'seed': seed, **q}), flush=True)
+        print('quality medians float64', json.dumps({
+            'config': label,
+            f'seeds {list(GATED_SEEDS)}': medians(
+                {s: per_seed[s] for s in GATED_SEEDS}),
+            f'float32 seeds {list(GATED_SEEDS)}': float32_medians[label],
+            f'seeds {list(QUALITY_SEEDS)}': medians(per_seed),
+            'gated': False, 'seconds': time.perf_counter() - start}),
+              flush=True)
+
+
+def debug_on_p06(torch, counts, enhancer, xla, examples):
+    """Phase 11.6: ``Enhancer.debug_example`` on P06 (float32): the four
+    statistics' shapes and ranges, and its masks against the 'xla'
+    chain's (the same unfused EM) on the same observation."""
+    import numpy as np
+    ex = max(examples, key=observation_seconds)
+    counts.reset()
+    debug = enhancer.debug_example(ex)
+    launches = {k: v for k, v in counts.read().items() if v}
+    reference_array, obs = xla._prepare_example(ex)
+    act, target, start_cf, end_cf = xla._device_args(
+        xla._example_activity(ex, reference_array), ex['speaker_id'], ex)
+    _, masks = xla._pipeline(obs, act, target,
+                             start_context_frames=start_cf,
+                             end_context_frames=end_cf, return_masks=True)
+    K = debug['masks'].shape[0]
+    shapes = {k: list(debug[k].shape) for k in (
+        'weights', 'logdet', 'condition', 'posterior_entropy')}
+    weight_err = float(np.abs(debug['weights'].sum(-1) - 1).max())
+    cond_min = float(debug['condition'].min())
+    ent = debug['posterior_entropy']
+    mask_err = float(np.abs(debug['masks'] - masks).max())
+    print('debug_example', json.dumps({
+        'utterance': ex['example_id'], 'shapes': shapes,
+        'launches': launches, 'weights_sum_err': weight_err,
+        'condition_min': cond_min, 'entropy_range': [float(ent.min()),
+                                                     float(ent.max())],
+        'masks_vs_xla': mask_err}), flush=True)
+    check(shapes['weights'] == [EM_PASSES, 513, K]
+          and shapes['posterior_entropy'] == [EM_PASSES, 513],
+          f'debug statistics shapes {shapes}')
+    check(weight_err <= 1e-5 and cond_min >= 0.99 and ent.min() >= 0
+          and ent.max() <= np.log(K) + 1e-5,
+          'the debug statistics are out of range')
+    check(mask_err <= DEBUG_MASK_ATOL,
+          f"debug masks differ from the 'xla' chain's by {mask_err:.3e}")
+    check(np.isfinite(debug['x_hat']).all(), 'debug x_hat is not finite')
+
+
+def mask_front_ends(torch):
+    """Phase 11.7: the energy masks and the from-mask beamformers on the
+    small scene's STFT, card vs CPU: the masks' share of differing
+    entries; the three beamformers (on the same masks) and the two
+    unsupervised MVDR wrappers within FRONT_END_ATOL of the peak in
+    complex128, and in complex64 (MVDR on the Gauss-Jordan kernel; GEV
+    and LCMV in float64 either way) within SCENE_ATOL, the gate of every
+    float32 chain here: without BAN, float32 MVDR on the quantile masks'
+    noise PSD (its condition printed) moves with the summation order."""
+    import numpy as np
+    from pb_chime5_tpu_torch.ops import beamform as bf
+    from pb_chime5_tpu_torch.ops import masks
+    from pb_chime5_tpu_torch.ops.stft import stft
+    obs, _, _ = small_scene()
+    Y64 = stft(torch.from_numpy(obs.astype(np.float64)), 1024, 256)
+    shares, errs = {}, {}
+    for dtype, Y in (('complex128', Y64), ('complex64', Y64.to(
+            torch.complex64))):
+        for name, fn in (
+                ('lorenz_mask', lambda y: masks.lorenz_mask(
+                    y.transpose(-2, -1)).transpose(-2, -1)),
+                ('quantile_mask', lambda y: torch.stack(masks.quantile_mask(
+                    y, [0.1, -0.8], axis=-2)))):
+            cpu, card = fn(Y), fn(Y.cuda()).cpu()
+            shares[f'{name} {dtype}'] = float((cpu != card).double().mean())
+        x_mask = masks.lorenz_mask(Y.transpose(-2, -1)).transpose(-2, -1)
+        i_mask = masks.quantile_mask(Y, -0.5, sensor_axis=0, axis=-2)
+        calls = {
+            'beamform_mvdr_souden_from_masks': (x_mask, 1 - x_mask),
+            'beamform_gev_from_masks': (x_mask, 1 - x_mask),
+            'beamform_lcmv_from_masks': (x_mask, i_mask, 1 - x_mask),
+            'beamform_mvdr_souden_with_lorenz_mask': (),
+            'beamform_mvdr_souden_with_quantile_mask': ()}
+        for name, args in calls.items():
+            fn = getattr(bf, name)
+            cpu = fn(Y, *args).numpy()
+            card = fn(Y.cuda(), *(a.cuda() for a in args)).cpu().numpy()
+            errs[f'{name} {dtype}'] = float(np.abs(card - cpu).max()
+                                            / np.abs(cpu).max())
+    _, n_mask = masks.quantile_mask(Y64, [0.1, -0.8], axis=-2)
+    cov_n = bf.psd_matrix(bf._to_fdt(Y64), bf.condense_mask(n_mask))
+    print('mask front-ends, card vs CPU', json.dumps({
+        'mask_share_differing': shares, 'of_the_peak': errs,
+        'quantile_noise_psd_condition_max': float(
+            torch.linalg.cond(cov_n).max())}), flush=True)
+    check(all(v <= MASK_SHARE for v in shares.values()),
+          f'energy masks differ card vs CPU: {shares}')
+    check(all(v <= (FRONT_END_ATOL if k.endswith('complex128')
+                    or 'gev' in k or 'lcmv' in k else SCENE_ATOL)
+              for k, v in errs.items()),
+          f'from-mask beamformers differ card vs CPU: {errs}')
+
+
+def xla_float64_paths(torch, counts, chol_solve, db, examples, session,
+                      scenes, float32_medians, work):
+    """Phase 11 on phase 4's corpus (``db``, ``examples``), phase 8's
+    ``session`` and phase 9's ``scenes``; returns the launches of the
+    'xla' path and the float64 path."""
+    from pb_chime5_tpu_torch.models.enhancer import get_enhancer
+    from pb_chime5_tpu_torch.ops import linalg
+    enhancer = get_enhancer(multiarray=True, database_path=str(db),
+                            device='cuda')
+    xla_launches, xla = xla_em_on_p06(torch, counts, enhancer, examples)
+    torch.cuda.empty_cache()
+    float64_solve_times(torch, linalg, chol_solve, enhancer,
+                        max(examples, key=observation_seconds))
+    torch.cuda.empty_cache()
+    f64_launches = float64_enhancer(torch, counts, db, examples, enhancer)
+    torch.cuda.empty_cache()
+    float64_session(torch, counts, *session, work)
+    torch.cuda.empty_cache()
+    float64_quality(torch, scenes, float32_medians)
+    debug_on_p06(torch, counts, enhancer, xla, examples)
+    mask_front_ends(torch)
+    check(not imported_jax(), 'the run imported jax or the JAX package')
+    return xla_launches, f64_launches
+
+
+
 class LaunchCounts:
     """The launch counters of every kernel entry of the port."""
 
@@ -1968,15 +2376,20 @@ def main():
         del enhancer
         torch.cuda.empty_cache()
         phase('8 session path, session-audio cache on and off')
-        session_path(torch, counts, work)
+        session = session_path(torch, counts, work)
         torch.cuda.empty_cache()
         phase('9 quality gate on the realistic scenes')
-        quality_path(torch)
+        scenes, float32_medians = quality_path(torch)
         torch.cuda.empty_cache()
         phase('10 the CHiME-6 paths: track 1 (kaldi_run chime6=True) and '
               'track 2 (kaldi_run_rttm)')
         track1_launches, track2_launches = chime6_paths(
             torch, counts, (fused_em, gj_inverse, chol_solve), work)
+        torch.cuda.empty_cache()
+        phase("11 the per-frequency ('xla') EM, float64 and the debug twin")
+        xla_launches, f64_launches = xla_float64_paths(
+            torch, counts, chol_solve, work / 'chime5.json', examples,
+            session, scenes, float32_medians, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -1986,7 +2399,8 @@ def main():
         per_path = {'default': default_launches,
                     'all-Pallas': pallas_launches,
                     'CHiME-6 track 1': track1_launches,
-                    'CHiME-6 track 2 (RTTM)': track2_launches}
+                    'CHiME-6 track 2 (RTTM)': track2_launches,
+                    "'xla' EM": xla_launches, 'float64': f64_launches}
         return {'name': name, 'route': 'cuda',
                 'source': f'pb_chime5_tpu_torch/csrc/{source}',
                 'replaces': f'pb_chime5_tpu/ops/pallas/{replaces}',

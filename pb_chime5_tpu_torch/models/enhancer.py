@@ -8,8 +8,10 @@ a session is dispatched in session-time order, and each utterance's
 observation is sliced out of the device-resident session-audio window
 (``models/audio_cache.py``, :meth:`GssPipeline.dispatch_cached`);
 otherwise it is read and uploaded per utterance
-(:meth:`GssPipeline.dispatch`).  Not ported yet (ROADMAP.md, Queue 1):
-the mesh loop, warmup and the debug twin.
+(:meth:`GssPipeline.dispatch`).  ``compute_dtype`` float32 (the hand
+kernels) or float64 (plain PyTorch, as the JAX package computes in
+float64 when asked); :meth:`Enhancer.debug_example` runs the debug twin.
+Not ported yet (ROADMAP.md, Queue 1): the mesh loop and warmup.
 """
 
 import dataclasses
@@ -18,6 +20,7 @@ import pickle
 from pathlib import Path
 
 import numpy as np
+import torch
 
 from pb_chime5_tpu_torch import mapping
 from pb_chime5_tpu_torch.activity import get_activity
@@ -26,7 +29,7 @@ from pb_chime5_tpu_torch.io import dump_audio, load_audio
 from pb_chime5_tpu_torch.models.audio_cache import (
     CachedWindow, SessionAudioCache)
 from pb_chime5_tpu_torch.models.gss import GssConfig, GssPipeline
-from pb_chime5_tpu_torch.ops.stft import samples_to_stft_frames
+from pb_chime5_tpu_torch.ops.stft import istft, samples_to_stft_frames, stft
 from pb_chime5_tpu_torch.parallel.scheduler import length_balanced_shard
 from pb_chime5_tpu_torch.utils import activity_time_to_frequency
 
@@ -170,6 +173,8 @@ class Enhancer:
     #                                  'first_array_mics'
     reference_array: str = None
     length_buckets: tuple = DEFAULT_LENGTH_BUCKETS
+    # np.float32 (the hand kernels) | np.float64 (plain PyTorch)
+    compute_dtype: object = np.float32
     # device-resident rolling session-audio cache (models/audio_cache.py):
     # session loops slice each utterance out of a resident window of
     # session audio instead of uploading utterance + 30 s context every
@@ -189,6 +194,7 @@ class Enhancer:
             self.gss_config,
             length_buckets=(list(self.length_buckets)
                             if self.length_buckets else None),
+            dtype=self.compute_dtype,
             device_trim=self.device_trim,
             device=self.device)
         self._audio_cache = None
@@ -215,6 +221,19 @@ class Enhancer:
     @property
     def stft_fading(self):
         return self.gss_config.stft_fading
+
+    def stft(self, x):
+        """Analysis transform (reference core.py:305-312): NumPy (..., N)
+        in, NumPy (..., T, F) out, computed on the enhancer's device."""
+        X = stft(torch.from_numpy(np.asarray(x)).to(self._pipeline.device),
+                 self.stft_size, self.stft_shift, fading=self.stft_fading)
+        return X.cpu().numpy()
+
+    def istft(self, X):
+        """Synthesis transform: NumPy (..., T, F) in, NumPy (..., N) out."""
+        x = istft(torch.from_numpy(np.asarray(X)).to(self._pipeline.device),
+                  self.stft_size, self.stft_shift, fading=self.stft_fading)
+        return x.cpu().numpy()
 
     def get_iterator(self, session_id):
         return self.db.get_iterator_for_session(
@@ -395,6 +414,26 @@ class Enhancer:
         reference_array, obs = self._prepare_example(ex)
         return self._enhance_loaded(ex, reference_array, obs)
 
+    def debug_example(self, ex):
+        """Autopsy one utterance: the debug twin of the chain
+        (:meth:`GssPipeline.debug`, the unfused EM) on its observation,
+        read from the files; returns ``{'x_hat', 'masks' (K, T, F),
+        'weights', 'logdet', 'condition', 'posterior_entropy'}`` (the
+        per-EM-iteration statistics of
+        ``ops.cacgmm.cacgmm_posteriors_debug``), ``x_hat`` trimmed as
+        :meth:`enhance_example`'s output."""
+        reference_array, obs = self._prepare_example(ex)
+        activity_freq, target_index, start_cf, end_cf = self._device_args(
+            self._example_activity(ex, reference_array),
+            ex['speaker_id'], ex)
+        x_hat, masks, debug = self._pipeline.debug(
+            obs, activity_freq, target_index,
+            start_context_frames=start_cf, end_context_frames=end_cf)
+        trim = self._trim(ex, reference_array)
+        if trim is not None:
+            x_hat = x_hat[..., trim[0]:trim[0] + trim[1]]
+        return dict(x_hat=x_hat, masks=masks, **debug)
+
     def _example_activity(self, ex, reference_array):
         """Per-class sample activity on the reference array's clock
         (reference core.py:419-425)."""
@@ -478,10 +517,10 @@ def check_factory_options(wpe, bf, activity_garbage_class, compute_dtype):
         assert activity_garbage_class not in (False, None), (
             'bf=lcmv requires a garbage (noise) class: set '
             'activity_garbage_class=True')
-    if np.dtype(compute_dtype) != np.float32:
+    if np.dtype(compute_dtype) not in (np.float32, np.float64):
         raise NotImplementedError(
             f'compute_dtype={compute_dtype!r}: the port computes in float32 '
-            f'only (ROADMAP.md, Queue 1 item 5)')
+            f'or float64')
 
 
 def get_enhancer(
@@ -526,8 +565,8 @@ def get_enhancer(
     ``get_enhancer`` (the reference's, pb_chime5/core.py:574-637, and the
     JAX extensions), plus the compute ``device``.
 
-    The pipeline computes in float32 only: any other ``compute_dtype``
-    raises (ROADMAP.md, Queue 1 item 5).  ``device_audio_cache``,
+    ``compute_dtype`` float32 (the hand kernels) or float64 (plain
+    PyTorch); any other raises.  ``device_audio_cache``,
     ``cache_window_seconds`` and ``cache_prefetch`` switch and size the
     session-audio cache, with the JAX defaults (on, 180 s, prefetch on)."""
     check_factory_options(wpe, bf, activity_garbage_class, compute_dtype)
@@ -560,6 +599,7 @@ def get_enhancer(
         multiarray=multiarray,
         reference_array=reference_array,
         length_buckets=length_buckets,
+        compute_dtype=compute_dtype,
         device_audio_cache=device_audio_cache,
         cache_window_seconds=cache_window_seconds,
         cache_prefetch=cache_prefetch,

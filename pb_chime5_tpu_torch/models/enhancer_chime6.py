@@ -182,7 +182,7 @@ def get_enhancer(
 ):
     """Factory with the keywords of the JAX package's CHiME-6
     ``get_enhancer`` (the reference's, pb_chime5/core_chime6.py:571-634),
-    plus the compute ``device``; float32 only."""
+    plus the compute ``device``."""
     check_factory_options(wpe, bf, activity_garbage_class, compute_dtype)
     assert activity_path is None or activity_type == 'path', \
         (activity_path, activity_type)
@@ -207,6 +207,7 @@ def get_enhancer(
         multiarray=multiarray,
         reference_array=reference_array,
         length_buckets=length_buckets,
+        compute_dtype=compute_dtype,
         device_audio_cache=device_audio_cache,
         cache_window_seconds=cache_window_seconds,
         cache_prefetch=cache_prefetch,

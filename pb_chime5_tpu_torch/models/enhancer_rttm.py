@@ -5,7 +5,8 @@ pb_chime5/core_chime6_rttm.py).
 The database is built from the corpus's audio files and an RTTM's
 intervals (no transcriptions); the activity comes from an RTTM file
 (possibly another one); each example's audio is read eagerly, float64,
-through ``recursive_load_audio`` (short tracks dropped, the rest cut to
+through ``recursive_load_audio`` (uploaded in the compute dtype, float64
+when asked) (short tracks dropped, the rest cut to
 their common length) on the session pump's prefetch thread; a failing
 example prints its id and raises (reference core_chime6_rttm.py:
 168-185).  No session-audio cache, as in the JAX package.  The session
@@ -155,7 +156,7 @@ def get_enhancer(
 ):
     """Factory with the keywords of the JAX package's RTTM
     ``get_enhancer`` (the reference's, pb_chime5/core_chime6_rttm.py:
-    360-422), plus the compute ``device``; float32 only."""
+    360-422), plus the compute ``device``."""
     check_factory_options(wpe, bf, activity_garbage_class, compute_dtype)
     return Enhancer(
         db=get_database(chime6_dir, database_rttm, multiarray),
@@ -175,5 +176,6 @@ def get_enhancer(
         bf_drop_context=bf_drop_context,
         context_samples=context_samples,
         length_buckets=length_buckets,
+        compute_dtype=compute_dtype,
         device=device,
     )

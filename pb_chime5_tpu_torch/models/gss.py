@@ -5,10 +5,15 @@
     -> optional mask postfilter -> iSTFT -> output trim
 
 :func:`gss_enhance` runs the chain eagerly on the device of its input
-(no tracing, no compile step); :class:`GssPipeline` is the host wrapper
-with the JAX pipeline's bucketing, trim planning and asynchronous
-dispatch / gather.  Layouts match the JAX package: (F, D, T) through WPE
-and the beamformer, (F, T, D) into the EM, masks (K, T, F) out.
+(no tracing, no compile step) in the precision of its input: float32
+(int16 PCM is scaled to float32 on the device) or float64, where no hand
+kernel runs; :class:`GssPipeline` is the host wrapper with the JAX
+pipeline's compute ``dtype``, bucketing, trim planning and asynchronous
+dispatch / gather.  :func:`gss_enhance_debug` and
+:meth:`GssPipeline.debug` are the JAX debug twin: the chain with the
+unfused EM's per-iteration statistics.  Layouts match the JAX package:
+(F, D, T) through WPE and the beamformer, (F, T, D) into the EM, masks
+(K, T, F) out.
 """
 
 import contextlib
@@ -19,13 +24,14 @@ import torch
 
 from pb_chime5_tpu_torch._device import assert_precision, resolve_device
 from pb_chime5_tpu_torch.ops import beamform as bf
-from pb_chime5_tpu_torch.ops.cacgmm import CacgmmConfig, cacgmm_posteriors
+from pb_chime5_tpu_torch.ops.cacgmm import (
+    CacgmmConfig, cacgmm_posteriors, cacgmm_posteriors_debug)
 from pb_chime5_tpu_torch.ops.stft import (
     istft, stft, stft_frame_count, valid_frame_mask)
 from pb_chime5_tpu_torch.ops.wpe import wpe
 
-__all__ = ['GssConfig', 'gss_enhance', 'gss_enhance_cached', 'GssPipeline',
-           'record_stage_times']
+__all__ = ['GssConfig', 'gss_enhance', 'gss_enhance_cached',
+           'gss_enhance_debug', 'GssPipeline', 'record_stage_times']
 
 _ROADMAP = 'not ported yet (see ROADMAP.md, Queue 1)'
 BEAMFORMERS = ('mvdrSouden_ban', 'mvdr_souden', 'gev_ban', 'gev', 'lcmv',
@@ -73,7 +79,8 @@ class GssConfig:
     defaults and the ported kernels: the all-Pallas configuration
     ``GssConfig(bss_em_backend='pallas', bss_inverse='pallas_gj',
     wpe_stats_backend='pallas')`` runs the statistics and Gauss-Jordan
-    kernels beside the fused E+M kernel.  The chain's options are ported:
+    kernels beside the fused E+M kernel; ``bss_em_backend='xla'`` runs the
+    per-frequency EM (``ops/cacgmm.py``).  The chain's options are ported:
     WPE ``psd_context``, ``chunk_size`` and ``solve_refine``, the EM
     inverses 'cholesky', 'schur' and 'eigh', and every beamformer of
     :data:`BEAMFORMERS`.  Every other value, and every option that is not
@@ -97,7 +104,8 @@ class GssConfig:
 
     bss_iterations: int = 20
     bss_iterations_post: int = 1
-    # the fused E+M kernel ('pallas' is the JAX name of the same choice)
+    # 'auto' (the fused E+M kernel for float32, the per-frequency EM for
+    # float64) | 'pallas' (the fused kernel) | 'xla' (per-frequency EM)
     bss_em_backend: str = 'auto'
     # 'gauss_jordan' / 'auto' (plain GJ) | 'pallas_gj' (the GJ kernel) |
     # 'cholesky' | 'schur' | 'eigh'
@@ -153,7 +161,8 @@ class GssConfig:
 
 def _stft_and_mask(obs, num_valid_samples, config: GssConfig):
     """obs (D, N) int16 or float tensor -> (Obs (F, D, T), frame_mask (T,)
-    bool or None, N).  int16 PCM is scaled by 2^-15 on the device."""
+    bool or None, N).  int16 PCM is scaled by 2^-15 on the device, in
+    float32, the one compute dtype that uploads it (as in JAX)."""
     if obs.dtype == torch.int16:
         obs = obs.to(torch.float32) * (2.0 ** -15)
     N = obs.shape[-1]
@@ -294,6 +303,36 @@ def gss_enhance(obs, activity_freq, target_index, *,
     return x_hat, masks.permute(1, 2, 0)                       # (K, T, F)
 
 
+def gss_enhance_debug(obs, activity_freq, target_index, *,
+                      config: GssConfig = GssConfig(),
+                      start_context_frames=0, end_context_frames=0,
+                      num_valid_samples=None, num_output_samples=None):
+    """:func:`gss_enhance` with per-EM-iteration introspection (the
+    reference's ``stack_parameters`` debug collection, core.py:27-29,
+    211): the EM is ``ops.cacgmm.cacgmm_posteriors_debug``, the unfused
+    one, whatever ``bss_em_backend`` says; no output trim.
+
+    Returns (x_hat, masks (K, T, F), debug dict of (I, F, K) / (I, F)
+    tensors: weights, logdet, condition, posterior_entropy), on the
+    device of ``obs``."""
+    device = obs.device
+    if device.type == 'cuda':
+        assert_precision()
+    Obs, frame_mask, N = _stft_and_mask(obs, num_valid_samples, config)
+    Obs = _wpe_stage(Obs, config, frame_mask)
+    masks, debug = cacgmm_posteriors_debug(
+        Obs.transpose(1, 2), torch.as_tensor(activity_freq, device=device),
+        config=config.cacgmm_config, frame_mask=frame_mask)
+    X_hat, masks = _bf_stage(Obs, masks, int(target_index), config,
+                             int(start_context_frames),
+                             int(end_context_frames), frame_mask)
+    x_hat = istft(X_hat.T, config.stft_size, config.stft_shift,
+                  fading=config.stft_fading,
+                  num_samples=(num_output_samples
+                               if num_output_samples is not None else N))
+    return x_hat, masks.permute(1, 2, 0), debug
+
+
 def _slice_cached_obs(cache, offsets, num_arrays, slice_samples,
                       num_valid_samples):
     """The (A*C, N_pad) observation out of the device-resident session
@@ -341,14 +380,16 @@ def gss_enhance_cached(cache, offsets, activity_freq, target_index, *,
 
 
 class GssPipeline:
-    """Host wrapper: NumPy in, NumPy out (float32 compute), length
-    bucketing, output trim planning and asynchronous dispatch on the
-    current CUDA stream."""
+    """Host wrapper: NumPy in, NumPy out, the compute ``dtype`` (float32,
+    or float64 where no hand kernel runs), length bucketing, output trim
+    planning and asynchronous dispatch on the current CUDA stream."""
 
     def __init__(self, config: GssConfig = GssConfig(), *,
-                 length_buckets=None, device_trim=True, device='cuda'):
+                 length_buckets=None, dtype=np.float32, device_trim=True,
+                 device='cuda'):
         self.config = config
         self.length_buckets = length_buckets
+        self.dtype = dtype
         self.device_trim = device_trim
         self.device = resolve_device(device)
 
@@ -374,16 +415,20 @@ class GssPipeline:
             num_samples, self.config.stft_size, self.config.stft_shift,
             fading=self.config.stft_fading)
 
-    @staticmethod
-    def _normalize_obs(obs):
-        """int16 PCM stays int16 (half the upload bytes; scaled on the
-        device); int32 PCM is scaled on the host; anything else becomes
-        float32."""
+    def _normalize_obs(self, obs):
+        """The observation in the compute dtype (the JAX rules): int16 PCM
+        stays int16 only for float32 (half the upload bytes; scaled on the
+        device), for any other dtype it is scaled on the host; int32 PCM
+        is scaled on the host; anything else is cast."""
         obs = np.asarray(obs)
-        if obs.dtype == np.int32:
-            obs = (obs * 2.0 ** -31).astype(np.float32)
-        elif obs.dtype != np.int16:
-            obs = obs.astype(np.float32)
+        dtype = np.dtype(self.dtype)
+        if obs.dtype == np.int16:
+            if dtype != np.float32:
+                obs = (obs.astype(dtype) * 2.0 ** -15).astype(dtype)
+        elif obs.dtype == np.int32:
+            obs = (obs * 2.0 ** -31).astype(dtype)
+        else:
+            obs = obs.astype(dtype)
         if obs.ndim == 1:
             obs = obs[None]
         return obs
@@ -416,17 +461,23 @@ class GssPipeline:
             activity_freq, np.int8)[:, :T_pad]
         return self._upload(act)
 
+    def _padded(self, obs):
+        """(observation in the compute dtype, zero-padded to its length
+        bucket, (D, N_pad); N)."""
+        obs = self._normalize_obs(obs)
+        D, N = obs.shape
+        padded = np.zeros((D, self.bucket_length(N)), obs.dtype)
+        padded[:, :N] = obs
+        return padded, N
+
     def dispatch(self, obs, activity_freq, target_index, *,
                  start_context_frames=0, end_context_frames=0, trim=None):
         """Enqueue one utterance on the current stream and return a handle
         for :meth:`gather` without waiting for the device: the upload is
         from pinned memory, and the waveform's download into pinned host
         memory is enqueued behind the compute."""
-        obs = self._normalize_obs(obs)
-        D, N = obs.shape
-        N_pad = self.bucket_length(N)
-        padded = np.zeros((D, N_pad), obs.dtype)
-        padded[:, :N] = obs
+        padded, N = self._padded(obs)
+        N_pad = padded.shape[1]
         N_dl, host_slice, trim_kw = self._plan_trim(trim, N, N_pad)
         x_hat, masks = gss_enhance(
             self._upload(padded), self._bucket_activity(activity_freq, N_pad),
@@ -506,3 +557,19 @@ class GssPipeline:
         if return_masks:
             return self.gather(handle, return_masks=True)
         return self.gather(handle), None
+
+    def debug(self, obs, activity_freq, target_index, *,
+              start_context_frames=0, end_context_frames=0):
+        """Synchronous debug call, with :meth:`dispatch`'s bucketing and
+        padding: (x_hat, masks, debug dict of NumPy arrays), the
+        per-EM-iteration statistics of :func:`gss_enhance_debug`."""
+        padded, N = self._padded(obs)
+        x_hat, masks, debug = gss_enhance_debug(
+            self._upload(padded),
+            self._bucket_activity(activity_freq, padded.shape[1]),
+            target_index, config=self.config,
+            start_context_frames=start_context_frames,
+            end_context_frames=end_context_frames, num_valid_samples=N,
+            num_output_samples=padded.shape[1])
+        return (x_hat.cpu().numpy()[:N], masks.cpu().numpy(),
+                {k: v.cpu().numpy() for k, v in debug.items()})

@@ -447,7 +447,8 @@ def hermitian_solve_chol_reference(A, B, *, relative_load=None,
     update and the substitutions' long sums, in A's dtype
     (:func:`_dot_own`), rounded to A's dtype once; the rest runs in A's
     dtype as JAX runs it.  The kernel repeats these operations one for
-    one, so the two agree bit for bit.
+    one, so the two agree bit for bit.  In complex128 (no kernel) it is
+    the float64 WPE solve's floored fallback (``ops/wpe.py::solve_floored``).
     (In float32 arithmetic these panels, with their explicit block
     inverses, are ~5x less accurate than LAPACK's Cholesky on WPE
     statistics: PERF.md, Findings.)"""

@@ -248,11 +248,11 @@ def hermitian_inverse_and_logdet_reference(B):
     return _gauss_jordan(B, floor_reciprocal=False)
 
 
-def _denom_floor(D):
+def _denom_floor(D, dtype=torch.float32):
     """The overflow-aware floor of den: D / tiny is inf in float32, and an
     empty class (den == 0, S == 0) must give cov 0 (+ jitter), not
     0 * inf = NaN."""
-    return 2.0 * D / torch.finfo(torch.float32).max
+    return 2.0 * D / torch.finfo(dtype).max
 
 
 def trace_normalize(cov):
@@ -281,17 +281,18 @@ def add_jitter(cov, diagonal_floor):
 
 def em_covariances(S, den):
     """The EM finalize before its jitter and inverse (the ``finalize`` of
-    the JAX fused-kernel EM): S (F, K, D, D), den (F, K) -> (log_weight
-    (F, K), trace-normalized Hermitian covariances (F, K, D, D))."""
+    the JAX fused-kernel EM, and the tail of its chunked EM): S (F, K, D,
+    D), den (F, K), float32 or float64 -> (log_weight (F, K),
+    trace-normalized Hermitian covariances (F, K, D, D))."""
     D = S.shape[-1]
-    finfo = torch.finfo(torch.float32)
+    tiny = torch.finfo(den.dtype).tiny
     total = den.sum(dim=-1, keepdim=True)
-    weight = torch.where(total > 0, den / torch.clamp_min(total, finfo.tiny),
+    weight = torch.where(total > 0, den / torch.clamp_min(total, tiny),
                          torch.zeros_like(den))
-    log_weight = torch.log(torch.clamp_min(weight, finfo.tiny))
+    log_weight = torch.log(torch.clamp_min(weight, tiny))
     cov = trace_normalize(hermitize(
-        S * (D / torch.clamp_min(den, _denom_floor(D)))[..., None, None]
-        .to(S.dtype)))
+        S * (D / torch.clamp_min(den, _denom_floor(D, den.dtype)))
+        [..., None, None].to(S.dtype)))
     return log_weight, cov
 
 

@@ -22,9 +22,14 @@ Iterative offline WPE batched over frequency:
   (the WPE headline, 240) in one launch of the blocked-Cholesky kernel
   (:func:`~pb_chime5_tpu_torch.ops.kernels.chol_solve.hermitian_solve_chol`,
   the JAX default ``method='chol'`` with its relative pivot floor; its
-  plain version on the CPU), else
-  :func:`~pb_chime5_tpu_torch.ops.linalg.hermitian_solve` (Gauss-Jordan
-  up to d = 32, cuSOLVER / LAPACK Cholesky above 256 and in complex128),
+  plain version on the CPU); for complex128 with ``taps * D > 32`` by
+  :func:`solve_floored`: ``cholesky_ex`` + ``cholesky_solve`` on the
+  equilibrated, loaded system, and the frequencies where a pivot falls
+  below JAX's floor ``eps^2 * max(diag)`` (a failed factorization
+  included) solved again by K5's plain version (JAX's panels with the
+  floor): never a raise; else
+  :func:`~pb_chime5_tpu_torch.ops.linalg.hermitian_solve` (Gauss-Jordan up
+  to d = 32, cuSOLVER / LAPACK Cholesky above 256),
 * output ``X = Y - G^H Ytilde``.
 
 ``chunk_size`` accumulates R and P over T-chunks of that many frames and
@@ -45,12 +50,13 @@ rejects ``wpe_precision`` other than 'highest'.
 
 import torch
 
+from pb_chime5_tpu_torch.ops.kernels import chol_solve
 from pb_chime5_tpu_torch.ops.kernels.chol_solve import (
-    hermitian_solve_chol, supports)
+    BLOCK, hermitian_solve_chol, supports)
 from pb_chime5_tpu_torch.ops.kernels.wpe_stats import (
     wpe_statistics, wpe_statistics_reference)
 from pb_chime5_tpu_torch.ops.linalg import (
-    hermitize, hermitian_solve, stable_solve)
+    equilibrate, hermitize, hermitian_solve, stable_solve)
 
 __all__ = ['wpe', 'build_y_tilde', 'get_power_inverse']
 
@@ -89,6 +95,35 @@ def get_power_inverse(X, psd_context: int = 0, frame_mask=None):
     return 1.0 / torch.maximum(power, floor)
 
 
+def solve_floored(A, B, *, relative_load, refine=0):
+    """JAX's ``hermitian_solve(A, B, relative_load=..., method='chol',
+    refine=...)`` for complex128 (F, d, d), (F, d, E): LAPACK / cuSOLVER's
+    Cholesky where every pivot clears JAX's floor ``eps^2 * max(diag)``
+    of the loaded, equilibrated matrix, else (for those frequencies only:
+    the host reads which) the floored panels of
+    ``chol_solve.hermitian_solve_chol_reference``."""
+    As0, As, Bs, sinv = equilibrate(A, B, relative_load)
+    L, info = torch.linalg.cholesky_ex(As)
+    X = torch.cholesky_solve(Bs, L)
+    for _ in range(refine):
+        X = X + torch.cholesky_solve(Bs - As0 @ X, L)
+    X = sinv[..., :, None] * X
+    # the panels' floor: the largest diagonal entry of the matrix padded
+    # to a multiple of BLOCK by an identity block
+    maxdiag = torch.diagonal(As, dim1=-2, dim2=-1).real.amax(dim=-1)
+    if A.shape[-1] % BLOCK:
+        maxdiag = torch.clamp_min(maxdiag, 1.0)
+    finfo = torch.finfo(maxdiag.dtype)
+    floor = torch.clamp_min(maxdiag * finfo.eps ** 2, finfo.tiny)
+    pivots = torch.diagonal(L, dim1=-2, dim2=-1).real ** 2
+    bad = torch.nonzero((info != 0) | (pivots < floor[:, None]).any(dim=-1))
+    if len(bad):
+        f = bad[:, 0]
+        X[f] = chol_solve.hermitian_solve_chol_reference(
+            A[f], B[f], relative_load=relative_load, refine=refine)
+    return X
+
+
 def _solve_G(R, P, regularization, refine=0):
     if not regularization:
         return stable_solve(R, P)
@@ -96,6 +131,9 @@ def _solve_G(R, P, regularization, refine=0):
         return hermitian_solve_chol(R.contiguous(), P.contiguous(),
                                     relative_load=regularization,
                                     refine=refine)
+    if R.dtype == torch.complex128 and R.shape[-1] > BLOCK:
+        return solve_floored(R, P, relative_load=regularization,
+                             refine=refine)
     return hermitian_solve(R, P, relative_load=regularization, refine=refine)
 
 

@@ -20,6 +20,7 @@ from pathlib import Path
 from pb_chime5_tpu_torch.models.enhancer_rttm import get_enhancer
 from pb_chime5_tpu_torch.parallel.scheduler import serial_shard
 from pb_chime5_tpu_torch.scripts.experiment import Experiment
+from pb_chime5_tpu_torch.scripts.run import factory_keywords
 
 
 def make_experiment(default_storage='runs'):
@@ -54,7 +55,7 @@ def make_experiment(default_storage='runs'):
             raise NotImplementedError(
                 f'config keys {sorted(unknown)} are not supported by the '
                 f'port (see ROADMAP.md)')
-        enhancer = get_enhancer(**cfg)
+        enhancer = get_enhancer(**factory_keywords(cfg))
 
         if isinstance(session_id, str):
             session_id = [session_id]

@@ -9,6 +9,8 @@
   keys that factory accepts, and a key that neither factory accepts
   raises,
 * named config ``multiarray`` (reference run.py:30-33),
+* ``compute_dtype=float64`` computes the chain in float64 (the value
+  reaches the factory as a NumPy dtype),
 * ``test_run`` enhances only the first 2 utterances,
 * outputs land in ``<storage>/<run_id>/audio/<dataset>/<id>.wav``.
 
@@ -18,6 +20,8 @@ are not ported yet (ROADMAP.md, Queue 1).
 
 import functools
 import inspect
+
+import numpy as np
 
 from pb_chime5_tpu_torch import mapping
 from pb_chime5_tpu_torch.models import enhancer_chime6
@@ -39,6 +43,14 @@ def get_session_ids(session_id):
     })
 
 
+def factory_keywords(cfg):
+    """A CLI config as factory keywords: ``compute_dtype`` (a string such
+    as 'float64' on the command line) as a NumPy dtype."""
+    if 'compute_dtype' in cfg:
+        cfg = {**cfg, 'compute_dtype': np.dtype(cfg['compute_dtype'])}
+    return cfg
+
+
 def make_enhancer(cfg, chime6, chime5_factory=get_enhancer):
     """The enhancer of a CLI config: the CHiME-6 factory if ``chime6``,
     else ``chime5_factory``, given the config keys it accepts; a key that
@@ -54,7 +66,8 @@ def make_enhancer(cfg, chime6, chime5_factory=get_enhancer):
         raise NotImplementedError(
             f'config keys {sorted(unknown)} are not supported by the '
             f'port (see ROADMAP.md)')
-    return factory(**{k: v for k, v in cfg.items() if k in accepted})
+    return factory(**{k: v for k, v in factory_keywords(cfg).items()
+                      if k in accepted})
 
 
 def make_experiment(get_enhancer_fn=get_enhancer, default_storage='runs'):

@@ -216,10 +216,19 @@ def test_empty_activity_class_stays_finite(rng):
 
 
 def test_config_rejects_unported_options():
+    """Names the JAX package does not have raise; the per-frequency EM
+    ('xla', with or without ``em_chunk_size``) is accepted; a chunk that
+    is not a positive int raises ``ValueError``."""
     for kw in (dict(inverse='lu'), dict(inverse='xla'),
-               dict(em_backend='xla')):
+               dict(em_backend='x')):
         with pytest.raises(NotImplementedError):
             cacgmm.CacgmmConfig(**kw)
+    for kw in (dict(em_backend='xla'),
+               dict(em_backend='xla', em_chunk_size=256)):
+        assert cacgmm.CacgmmConfig(**kw).em_backend == 'xla'
+    for chunk in (0, -1, 2.5, True):
+        with pytest.raises(ValueError):
+            cacgmm.CacgmmConfig(em_backend='xla', em_chunk_size=chunk)
 
 
 def test_make_initialization_matches_jax(rng):

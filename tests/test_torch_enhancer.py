@@ -184,10 +184,13 @@ def test_factory_accepts_the_jax_keywords_at_their_defaults(corpus):
                             compute_dtype=np.float32,
                             cache_window_seconds=180.0, cache_prefetch=True)
     assert type(enhancer).__name__ == 'Enhancer'
-    for dtype in (np.float64, 'float16'):
-        with pytest.raises(NotImplementedError):
-            get_enhancer(database_path=str(corpus), device='cpu',
-                         compute_dtype=dtype)
+    for dtype in (np.float64, 'float64'):
+        enhancer = get_enhancer(database_path=str(corpus), device='cpu',
+                                compute_dtype=dtype)
+        assert enhancer._pipeline.dtype == dtype
+    with pytest.raises(NotImplementedError):
+        get_enhancer(database_path=str(corpus), device='cpu',
+                     compute_dtype='float16')
 
 
 def test_cuda_device_without_card_raises(corpus):
@@ -227,6 +230,13 @@ def test_port_run_imports_no_jax():
             'test_run', 'with', 'session_id=S02', 'device=cpu',
             f'database_path={root}/db.json', 'context_samples=4000',
             'bss_iterations=2', 'wpe_tabs=2', 'length_buckets=(48000,)'])
+        assert len(list((exp.run_dir / 'audio' / 'dev').glob('*.wav'))) == 2
+        exp = make_experiment(default_storage=root / 'runs')
+        exp.run_commandline([
+            'test_run', 'with', 'session_id=S02', 'device=cpu',
+            f'database_path={root}/db.json', 'context_samples=4000',
+            'bss_iterations=2', 'wpe_tabs=2', 'length_buckets=(48000,)',
+            'compute_dtype=float64'])
         assert len(list((exp.run_dir / 'audio' / 'dev').glob('*.wav'))) == 2
 
         from pb_chime5_tpu_torch.database.create_json import to_samples

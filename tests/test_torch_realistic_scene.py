@@ -46,14 +46,15 @@ def _sir_db(x, only_target, only_interf):
     return float(10.0 * np.log10(e_t / max(e_i, 1e-30)))
 
 
-def chain_quality(scene, device='cpu', **config):
-    """The chain on ``device`` at ``GssConfig(**config)`` for postfilter
+def chain_quality(scene, device='cpu', dtype=np.float32, **config):
+    """The chain on ``device`` in ``dtype`` (the scene's observation cast
+    to it) at ``GssConfig(**config)`` for postfilter
     None ('bf') and 'mask_mul' ('mm'): SIR gains in dB over raw ch0
     (``sir_bf_db``, ``sir_mm_db``) and STOI ``{raw,bf,mm}_{span,ovl}``
     against the target's reverberant image at mic 0, over the target span
     and the two-talker overlap.  Every run must be finite and
     non-silent."""
-    obs = scene['obs'].astype(np.float32)
+    obs = scene['obs'].astype(dtype)
     (a0, a1), (b0, b1) = scene['spans']
     N = obs.shape[1]
     only0 = np.zeros(N, bool)

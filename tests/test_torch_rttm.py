@@ -284,6 +284,45 @@ def test_kaldi_run_rttm_test_run(corpus, tmp_path):
                 f'database_rttm={corpus / "dev.rttm"}', 'no_such_key=1'])
 
 
+def test_kaldi_run_rttm_float64_matches_jax(corpus, tmp_path, monkeypatch):
+    """``compute_dtype=float64`` on the track-2 CLI: the eager float64
+    reads upload as float64 (no cast to float32), and the WAVs equal the
+    JAX RTTM enhancer's in float64 within one LSB of int16."""
+    from pb_chime5_tpu_torch.models.gss import GssPipeline
+    uploaded = []
+    real = GssPipeline._upload
+
+    def record(self, array):
+        uploaded.append(array.dtype)
+        return real(self, array)
+    monkeypatch.setattr(GssPipeline, '_upload', record)
+    cheap = dict(bss_iterations=2, context_samples=8000,
+                 length_buckets=(16000 * 4,))
+    kaldi_run_rttm.make_experiment(default_storage=tmp_path / 'runs') \
+        .run_commandline([
+            'test_run', 'with', 'session_id=S02',
+            f'storage_dir={tmp_path / "port"}',
+            f'chime6_dir={corpus / "CHiME6"}',
+            f'database_rttm={corpus / "dev.rttm"}', 'device=cpu',
+            'compute_dtype=float64',
+            *(f'{k}={v!r}' for k, v in cheap.items())])
+    assert uploaded and set(uploaded) <= {np.dtype(np.float64),
+                                          np.dtype(np.int8)}
+    assert np.dtype(np.float64) in uploaded
+    jax_enhancer = jax_enhancer_rttm.get_enhancer(
+        database_rttm=str(corpus / 'dev.rttm'),
+        activity_rttm=str(corpus / 'dev.rttm'),
+        chime6_dir=str(corpus / 'CHiME6'), compute_dtype=np.float64, **cheap)
+    jax_enhancer.enhance_session('S02', tmp_path / 'jax', dataset_slice=2)
+    wavs = sorted((tmp_path / 'port' / 'audio' / 'dev').glob('*.wav'))
+    assert len(wavs) == 2
+    for wav in wavs:
+        got = load_audio(wav)
+        want = load_audio(tmp_path / 'jax' / 'dev' / wav.name)
+        assert got.shape == want.shape and np.abs(got).max() > 0
+        assert np.abs(got - want).max() <= 2.0 ** -15
+
+
 def test_factory_keywords_match_jax():
     port = inspect.signature(enhancer_rttm.get_enhancer).parameters
     jax_ = inspect.signature(jax_enhancer_rttm.get_enhancer).parameters

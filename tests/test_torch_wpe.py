@@ -184,7 +184,10 @@ def test_complex64_solve_runs_the_cholesky_kernel_entry(rng, monkeypatch):
     """complex64 with 32 < taps * D <= 256: every filter solve (plain and
     chunked iteration, ``solve_refine`` too) goes through
     ``hermitian_solve_chol``, whose plain version runs on the CPU; in
-    complex128 (and at d <= 32) ``linalg.hermitian_solve`` solves."""
+    complex128 (and at d <= 32) it is not called: there the solve is
+    ``wpe.solve_floored`` (the library's Cholesky, which needs the
+    floored plain version only where a pivot falls below JAX's floor)
+    or ``linalg.hermitian_solve``."""
     from pb_chime5_tpu_torch.ops.kernels import chol_solve
     calls = []
     plain = chol_solve.hermitian_solve_chol_reference
