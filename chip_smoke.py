@@ -147,7 +147,30 @@ Phases (the first failure ends the run with a non-zero exit code):
    beamformers and the two unsupervised MVDR wrappers card vs CPU on the
    small scene's STFT (<= 1e-4 of the peak in complex128, and for GEV and
    LCMV, which compute in float64, in complex64 too; complex64 MVDR
-   <= 1e-2, the float32 chain gate).
+   <= 1e-2, the float32 chain gate);
+12. the parallel session paths: phase 8's session (its first 60
+   utterances, a depth cut) through
+   ``enhance_session(mesh=make_mesh(1, 1), utterances_per_device=B)``,
+   B = 1 and 4, in turns with the serial loop (serial, 1, 4, 4, 1,
+   serial): each pass's wall, utterances a second, xRT, peak memory and
+   launches a batch (gated: 20 / 20 / 1 / 3 a batch, nothing else); B = 1
+   WAVs byte-identical to the serial ones, B = 4 within 1e-2 of the peak
+   (the largest deviation printed); K1's batched entry on the first
+   B = 4 batch's first masked pass against its plain version (the
+   headline gates), timed beside its bound; 8 utterances' dispatches,
+   their audio read beforehand, serial and at B = 4 under
+   ``torch.profiler`` (device busy share, host waits, the device's idle
+   time, the part of it before the first kernel, and the host ops that
+   ran in it); 4
+   utterances over ``make_mesh(1, 2, [cuda:0, cuda:0])`` against
+   ``make_mesh(1, 1)`` (<= 1e-3 of the peak); on phase 4's corpus,
+   ``testing/mp_worker.py`` (default config, cuda:0) as one serial
+   worker, two ``PB_JOB_ID`` jobs and two gloo processes (unions
+   byte-identical to the serial run, each job its
+   ``length_balanced_shard`` share, the master's run id on both ranks);
+   a fresh process's first utterance with and without
+   ``Enhancer.warmup`` (no build and no library load after it); P06 with
+   ``compile_mode='fast_start'`` bit-equal to the fused chain.
 
 Before each path's run every kernel's launch count is set to 0, and it is
 read right after.  It imports the port (``pb_chime5_tpu_torch``) and the
@@ -158,7 +181,7 @@ The last three lines of standard output are the card's name and power
 limit, the kernels' JSON record and ``{"ok": true, "device": {...}}``.
 The record has one row per TPU kernel, with its launches on each path
 (``launches_per_path``: default, all-Pallas, CHiME-6 tracks 1 and 2, the
-'xla' EM, float64);
+'xla' EM, float64, the mesh);
 K3's and K4's rows list the
 Gauss-Jordan kernel's other entries under ``entries``; K5's row is its
 entry at the WPE solve (``hermitian_solve_chol``), with the TPU kernel's
@@ -328,13 +351,15 @@ def k1_bound(z, params, act, fm):
     by its max over all K before the activity gate, so no class's form can
     be skipped); the update of S_k's lower triangle (2 D^2) only for the
     active (frame, class) pairs.  Every input read once (P in full: both
-    triangles enter), S and den written once."""
+    triangles enter), S and den written once.  A batch (act (B, K, T), fm
+    (B, T)) counts each utterance's frames on its F / B rows."""
     F, T, D = z.shape
-    K = act.shape[0]
+    K = act.shape[-2]
     valid = fm > 0
+    rows = F // (act.shape[0] if act.dim() == 3 else 1)
     n_valid = int(valid.sum())
-    pairs = int(((act > 0) & valid).sum())
-    flops = F * (n_valid * (3 + 2 * K) * D * D + pairs * 2 * D * D)
+    pairs = int(((act > 0) & valid[..., None, :]).sum())
+    flops = rows * (n_valid * (3 + 2 * K) * D * D + pairs * 2 * D * D)
     out_bytes = F * K * D * D * 8 + F * K * 4
     return bound(nbytes(z, *params, act, fm) + out_bytes, flops)
 
@@ -1369,7 +1394,8 @@ def settled_stats(cache):
     return dict(cache.stats)
 
 
-def session_pass(torch, counts, enhancer, n, out, expected=None):
+def session_pass(torch, counts, enhancer, n, out, expected=None,
+                 dataset_slice=False):
     """One ``enhance_session`` of the whole session into ``out``: its
     wall, launches (gated), the cache's stats line of this call, the bytes
     it moved with the prefetched window that its end leaves (charged to
@@ -1378,7 +1404,7 @@ def session_pass(torch, counts, enhancer, n, out, expected=None):
     ``gss_enhance``'s first event to its last on the stream) with the
     share of the wall outside them, where the card waits between
     utterances.  ``expected``: the launches (default: the default
-    config's)."""
+    config's); ``dataset_slice``: the session's first utterances only."""
     from pb_chime5_tpu_torch.models import gss
     cache = enhancer._audio_cache
     before = settled_stats(cache) if cache is not None else None
@@ -1389,7 +1415,8 @@ def session_pass(torch, counts, enhancer, n, out, expected=None):
     with gss.record_stage_times() as times:
         start = time.perf_counter()
         with contextlib.redirect_stdout(tee):
-            enhancer.enhance_session(['S02'], out, audio_dir_exist_ok=True)
+            enhancer.enhance_session(['S02'], out, audio_dir_exist_ok=True,
+                                     dataset_slice=dataset_slice)
         wall = time.perf_counter() - start
     chain_s = sum(sum(t.values()) for t in times) / 1e3
     launches = counts.read()
@@ -2272,6 +2299,543 @@ def xla_float64_paths(torch, counts, chol_solve, db, examples, session,
 
 
 
+# phase 12: the parallel session paths
+MESH_ROWS = (1, 4)            # utterances_per_device of the batched passes
+# the depth of phase 12's session: its first 60 utterances (of 100, in the
+# iterator's speaker order, so they span the whole 420 s), to keep the
+# phase near 90 s; the width (6 x 4 channels, the default config) is not cut
+MESH_SESSION_UTTERANCES = 60
+MESH_DEVIATION = 1e-2         # B = 4 vs serial, share of the peak (chain gate)
+FREQ_DEVIATION = 1e-3         # tests/test_parallel.py's pin for freq sharding
+FREQ_UTTERANCES = 4
+WORKER_TIMEOUT = 300
+WARMUP_PROBE = r'''
+import json, sys, time
+import torch
+sys.path.insert(0, sys.argv[1])
+from pb_chime5_tpu_torch.models.enhancer import get_enhancer
+from pb_chime5_tpu_torch.ops.kernels import _build
+enhancer = get_enhancer(multiarray=True, database_path=sys.argv[2],
+                        device='cuda')
+list(enhancer.get_iterator('S02'))      # the DB and the activity, untimed
+enhancer.activity['S02']
+start = time.perf_counter()
+if sys.argv[4] == 'warm':
+    enhancer.warmup('S02')
+torch.cuda.synchronize()
+warmup_s = time.perf_counter() - start
+before = dict(_build.stats)
+start = time.perf_counter()
+enhancer.enhance_session(['S02'], sys.argv[3], dataset_slice=1,
+                         audio_dir_exist_ok=True)
+first_s = time.perf_counter() - start
+loaded = {name.split('.')[0] for name in sys.modules}
+print('WARMUP_PROBE', json.dumps({
+    'warmup_s': warmup_s, 'first_utterance_s': first_s,
+    'builds_loads_before': before, 'builds_loads_after': dict(_build.stats),
+    'imported_jax': bool(loaded & {'jax', 'pb_chime5_tpu'})}), flush=True)
+'''
+
+
+def wav_deviation(a, b):
+    """The largest |x - y| / max|x| over the WAVs of output dirs ``a`` and
+    ``b`` (the same names in both)."""
+    import numpy as np
+    from pb_chime5_tpu_torch.io import load_audio
+    names = sorted(p.name for p in (a / 'dev').glob('*.wav'))
+    check(names and names == sorted(p.name for p in (b / 'dev').glob('*.wav')),
+          f'{a} and {b} hold other WAVs')
+    worst = 0.0
+    for name in names:
+        x, y = load_audio(a / 'dev' / name), load_audio(b / 'dev' / name)
+        check(x.shape == y.shape and np.isfinite(y).all(),
+              f'{name}: {y.shape} against {x.shape}, or not finite')
+        worst = max(worst, float(np.abs(x - y).max() / np.abs(x).max()))
+    return worst
+
+
+@contextlib.contextmanager
+def counted_batches():
+    """Counts the batches the mesh session loop dispatches (calls of the
+    batch driver's two entries into ``parallel/mesh.py``)."""
+    from pb_chime5_tpu_torch.parallel import batch_driver
+    names = ('sharded_gss_enhance', 'sharded_gss_enhance_cached')
+    real = {name: getattr(batch_driver, name) for name in names}
+    count = [0]
+
+    def counted(fn):
+        def wrapper(*args, **kw):
+            count[0] += 1
+            return fn(*args, **kw)
+        return wrapper
+    for name in names:
+        setattr(batch_driver, name, counted(real[name]))
+    try:
+        yield count
+    finally:
+        for name in names:
+            setattr(batch_driver, name, real[name])
+
+
+def mesh_pass(torch, counts, enhancer, n, out, mesh, rows, numbers):
+    """One ``enhance_session(mesh=..., utterances_per_device=rows)`` of the
+    whole session: wall, batches, launches (gated: 20 / 20 / 1 / 3 a
+    batch, nothing else), peak memory; ``numbers`` (emitted and processed
+    seconds) for the rates."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counts.reset()
+    with counted_batches() as batches:
+        start = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            enhancer.enhance_session(['S02'], out, audio_dir_exist_ok=True,
+                                     dataset_slice=n, mesh=mesh,
+                                     utterances_per_device=rows)
+        wall = time.perf_counter() - start
+    launches = counts.read()
+    nb = batches[0]
+    expected = expected_launches(launches, nb)
+    check(launches == expected,
+          f'mesh pass (B = {rows}): launches {launches} for {nb} batches, '
+          f'expected {expected}')
+    check(len(list((out / 'dev').glob('*.wav'))) == n,
+          f'mesh pass (B = {rows}) wrote other than {n} WAVs')
+    emitted_s, valid_s = numbers
+    return dict(wall_s=wall, batches=nb, utterances_per_s=n / wall,
+                xrt_emitted=emitted_s / wall, xrt_processed=valid_s / wall,
+                peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                launches_per_batch={k: v / nb for k, v in launches.items()
+                                    if v}), launches
+
+
+def capture_batched_k1(enhancer, mesh, rows, out, pass_index=1):
+    """K1's inputs at E+M pass ``pass_index`` (1: the first masked one) of
+    the first batch of ``rows`` utterances that the mesh loop dispatches
+    (a one-shot wrapper of the entry ``ops/cacgmm.py`` calls)."""
+    from pb_chime5_tpu_torch.ops import cacgmm
+    real = cacgmm.fused_em_scatter
+    seen = []
+
+    def capture(z, params, act, fm):
+        if act.dim() == 3 and act.shape[0] == rows:
+            seen.append((z.clone(), tuple(p.clone() for p in params),
+                         act.clone(), fm.clone())
+                        if len(seen) == pass_index else None)
+        return real(z, params, act, fm)
+    cacgmm.fused_em_scatter = capture
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            enhancer.enhance_session(['S02'], out, audio_dir_exist_ok=True,
+                                     dataset_slice=rows, mesh=mesh,
+                                     utterances_per_device=rows)
+    finally:
+        cacgmm.fused_em_scatter = real
+    check(len(seen) == EM_PASSES, f'{len(seen)} batched E+M passes, '
+          f'expected {EM_PASSES}')
+    return seen[pass_index]
+
+
+def batched_k1(torch, fused_em, inputs):
+    """K1's batched entry on a batch's real inputs against its plain
+    version (the headline gates), timed in turns beside its bound."""
+    from tests.test_torch_fused_em_cuda import scatter_errors
+    z, params, act, fm = inputs
+    before = fused_em.fused_em_scatter.launches
+    S, den = fused_em.fused_em_scatter(z, params, act, fm)
+    torch.cuda.synchronize()
+    check(fused_em.fused_em_scatter.launches == before + 1,
+          'the batched entry did not count its one launch')
+    S_ref, den_ref = fused_em.fused_em_scatter_reference(z, params, act, fm)
+    rel_S, rel_den, max_abs = scatter_errors(S, den, S_ref, den_ref)
+    B = act.shape[0]
+    print(f'fused_em batched (B = {B}, {z.shape[0]} rows, T = {z.shape[1]}'
+          f'): rel_S {rel_S:.3e} (<= {S_RTOL}), rel_den {rel_den:.3e} '
+          f'(<= {DEN_RTOL}), max_abs {max_abs:.3e}', flush=True)
+    check(bool(torch.isfinite(S).all() and torch.isfinite(den).all())
+          and rel_S <= S_RTOL and rel_den <= DEN_RTOL,
+          'the batched entry disagrees with its plain version')
+    del S, den, S_ref, den_ref
+    t = in_turns(torch, {
+        'plain': (lambda: fused_em.fused_em_scatter_reference(*inputs), 1),
+        'kernel': (lambda: fused_em.fused_em_scatter(*inputs), 5)})
+    bound_ms, bound_by = k1_bound(*inputs)
+    print_times(f'fused_em batched B = {B}', t, bound_ms, bound_by)
+    return dict(max_abs_err=max_abs, ms=t['kernel'], plain_ms=t['plain'],
+                library_ms=None, bound_ms=bound_ms, bound_by=bound_by)
+
+
+def union_of(spans):
+    """Disjoint sorted [lo, hi] intervals covering ``spans``."""
+    union = []
+    for lo, hi in sorted(spans):
+        if union and lo <= union[-1][1]:
+            union[-1][1] = max(union[-1][1], hi)
+        else:
+            union.append([lo, hi])
+    return union
+
+
+def idle_attribution(device_spans, host_ops, span):
+    """The device's idle time inside the trace's ``span`` (start, end), and
+    who had the host meanwhile: ``device_spans`` [(start, end)] of the
+    device events, ``host_ops`` [(name, start, end)] of host ops (us) ->
+    (idle ms, of which ms before the first device event, {op: idle ms
+    while it ran, the largest first, and under 'no host op' the idle time
+    in which no op ran: Python and NumPy})."""
+    import bisect
+    union = union_of(device_spans)
+    starts = [lo for lo, _ in union]
+
+    def idle_in(lo, hi):
+        covered = 0.0
+        i = max(bisect.bisect_right(starts, lo) - 1, 0)
+        while i < len(union) and union[i][0] < hi:
+            covered += max(0.0, min(hi, union[i][1]) - max(lo, union[i][0]))
+            i += 1
+        return (hi - lo) - covered
+    idle_us = idle_in(*span)
+    lead_us = (union[0][0] - span[0]) if union else idle_us
+    by_op = {}
+    for name, lo, hi in host_ops:
+        by_op[name] = by_op.get(name, 0.0) + idle_in(lo, hi) / 1e3
+    held = sum(idle_in(lo, hi)
+               for lo, hi in union_of((lo, hi) for _, lo, hi in host_ops))
+    by_op['no host op'] = (idle_us - held) / 1e3
+    return idle_us / 1e3, lead_us / 1e3, dict(sorted(
+        ((k, v) for k, v in by_op.items() if v > 0), key=lambda kv: -kv[1]))
+
+
+def profiled_window(torch, fn):
+    """``fn`` under ``torch.profiler``: the device busy share of its wall
+    (the union of the intervals of its CUDA kernels, copies and sets over
+    the wall; None where the trace shows no device event), {runtime call:
+    count} of the calls that make the host wait for the card, the wall and
+    the trace's span, and :func:`idle_attribution` of the trace at two
+    levels: by top-level host op (``fn``'s ``record_function`` labels) and
+    by the ops those call."""
+    activities = [torch.profiler.ProfilerActivity.CPU,
+                  torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities):
+        pass                                  # the profiler's first start
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=activities) as prof:
+        start = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - start) * 1e6
+    events = prof.events()
+    device = torch.autograd.DeviceType.CUDA
+    spans = [(e.time_range.start, e.time_range.end)
+             for e in events if e.device_type == device]
+    host = [e for e in events if e.device_type != device]
+    level = {1: [], 2: []}
+    for e in host:
+        depth = 1 if e.cpu_parent is None else (
+            2 if e.cpu_parent.cpu_parent is None else 0)
+        if depth:
+            level[depth].append((e.name, e.time_range.start,
+                                 e.time_range.end))
+    busy_us = sum(hi - lo for lo, hi in union_of(spans))
+    first = min((e.time_range.start for e in events), default=0)
+    last = max((e.time_range.end for e in events), default=0)
+    idle_ms, lead_ms, by_call = idle_attribution(spans, level[1],
+                                                 (first, last))
+    _, _, by_op = idle_attribution(spans, level[2], (first, last))
+
+    def top(d):
+        return {name: round(ms, 3) for name, ms in list(d.items())[:6]}
+    return dict(
+        busy=None if not spans else round(busy_us / wall_us, 4),
+        host_waits={e.key: e.count for e in prof.key_averages()
+                    if e.key in ('cudaStreamSynchronize',
+                                 'cudaDeviceSynchronize',
+                                 'cudaEventSynchronize')},
+        wall_ms=round(wall_us / 1e3, 3),
+        device_idle_of_wall_ms=round((wall_us - busy_us) / 1e3, 3),
+        trace_span_ms=round((last - first) / 1e3, 3),
+        device_idle_in_span_ms=round(idle_ms, 3),
+        before_first_device_event_ms=round(lead_ms, 3),
+        idle_by_call_ms=top(by_call), idle_by_op_ms=top(by_op))
+
+
+def dispatch_windows(torch, enhancer, mesh, examples):
+    """The device's busy share while the host enqueues ``examples``, their
+    audio read beforehand: one ``GssPipeline.dispatch`` each (serial), and
+    their batches of 4 (``BatchDispatcher`` on ``mesh``), each window warm
+    and profiled: the host waits in it by runtime call, and the device's
+    idle time by the host call and op that held the host meanwhile."""
+    from pb_chime5_tpu_torch.parallel.batch_driver import BatchDispatcher
+    pipeline = enhancer._pipeline
+    label = torch.profiler.record_function
+    rows = []
+    for ex in examples:
+        reference_array, obs = enhancer._prepare_example(ex)
+        act, target, start_cf, end_cf = enhancer._device_args(
+            enhancer._example_activity(ex, reference_array),
+            ex['speaker_id'], ex)
+        rows.append((obs, act, target, dict(start_context_frames=start_cf,
+                                            end_context_frames=end_cf)))
+
+    def serial():
+        handles = []
+        for o, a, t, kw in rows:
+            with label('GssPipeline.dispatch'):
+                handles.append(pipeline.dispatch(o, a, t, **kw))
+        for handle in handles:
+            with label('GssPipeline.gather'):
+                pipeline.gather(handle)
+
+    def batched():
+        dispatcher = BatchDispatcher(mesh, pipeline, utterances_per_device=4)
+        batches = []
+        for o, a, t, kw in rows:
+            with label('BatchDispatcher.add'):
+                batches.append(dispatcher.add(o, a, t, **kw))
+        with label('BatchDispatcher.flush'):
+            batches += dispatcher.flush()
+        for batch in [b for b in batches if b is not None]:
+            with label('DispatchedBatch.gather'):
+                list(batch.gather())
+    for name, fn in (('serial', serial), ('mesh (1, 1), B = 4', batched)):
+        fn()                                                  # warm
+        reading = profiled_window(torch, fn)
+        print(f'dispatch window, {len(rows)} utterances, {name} '
+              f'{json.dumps(reading)}', flush=True)
+
+
+def parallel_sessions(torch, counts, fused_em, session, work):
+    """Phase 12.1-12.2: phase 8's session (its first
+    MESH_SESSION_UTTERANCES) through the mesh loop on one card (B = 1 and
+    B = 4 rows a batch, in turns with the serial loop), K1's batched entry
+    on the first B = 4 batch, a profiled window, and frequency sharding
+    over two slots of the card; returns the B = 4 pass's launches and
+    K1's batched numbers."""
+    from pb_chime5_tpu_torch.models.enhancer import get_enhancer
+    from pb_chime5_tpu_torch.parallel import make_mesh
+    db = session[0]
+    enhancer = get_enhancer(multiarray=True, database_path=str(db),
+                            device='cuda')
+    examples = list(enhancer.get_iterator('S02'))[:MESH_SESSION_UTTERANCES]
+    n = len(examples)
+    emitted_s = sum(ex['num_samples_orig']['observation'][
+        ex['reference_array']] for ex in examples) / 16000
+    valid_s = observation_bytes(get_enhancer(
+        multiarray=True, database_path=str(db), device='cuda',
+        device_audio_cache=False), examples)[2]
+    print(f'phase 12 session: the first {n} utterances of S02, '
+          f'{emitted_s:.3f} s emitted, {valid_s:.3f} s processed',
+          flush=True)
+    mesh = make_mesh(1, 1)
+    out = work / 'mesh'
+    passes = []
+    for i, mode in enumerate(('serial', 1, 4, 4, 1, 'serial')):
+        if mode == 'serial':
+            p = session_pass(torch, counts, enhancer, n, out / f'{i}',
+                             dataset_slice=n)
+            p = dict(wall_s=p['wall_s'], utterances_per_s=n / p['wall_s'],
+                     xrt_emitted=emitted_s / p['wall_s'],
+                     xrt_processed=valid_s / p['wall_s'],
+                     peak_gib=p['peak_gib'], outside_chains=p[
+                         'outside_chains'])
+        else:
+            p, launches = mesh_pass(torch, counts, enhancer, n,
+                                    out / f'{i}', mesh, mode,
+                                    (emitted_s, valid_s))
+            if mode == 4:
+                mesh_launches = launches
+        p['mode'] = mode if mode == 'serial' else f'mesh (1, 1), B = {mode}'
+        passes.append(p)
+        print('mesh session pass', json.dumps({'pass': i, **p}), flush=True)
+    for mode in ('serial', 1, 4):
+        label = mode if mode == 'serial' else f'mesh (1, 1), B = {mode}'
+        walls = [p['wall_s'] for p in passes if p['mode'] == label]
+        print(f'session walls, {label}: {walls} s, median '
+              f'{statistics.median(walls):.4f} s', flush=True)
+    identical = same_wavs(out / '0', out / '1') and \
+        same_wavs(out / '0', out / '4')
+    deviation = max(wav_deviation(out / '0', out / '2'),
+                    wav_deviation(out / '5', out / '3'))
+    print(f'B = 1 WAVs byte-identical to the serial ones: {identical}; '
+          f'B = 4 largest deviation from serial: {deviation:.3e} of the '
+          f'peak (gate {MESH_DEVIATION})', flush=True)
+    check(identical, 'the B = 1 mesh session wrote other WAVs than serial')
+    check(deviation <= MESH_DEVIATION,
+          f'B = 4 deviates from serial by {deviation:.3e} of the peak')
+
+    k1 = batched_k1(torch, fused_em, capture_batched_k1(
+        enhancer, mesh, 4, work / 'mesh_k1'))
+    torch.cuda.empty_cache()
+    dispatch_windows(torch, enhancer, mesh, examples[:8])
+    torch.cuda.empty_cache()
+
+    names = [torch.cuda.get_device_name(d) for d in (0, 0)]
+    sharded = make_mesh(1, 2, devices=[torch.device('cuda', 0)] * 2)
+    print(f'freq sharding: slots {sharded.devices[0]}, both {names[0]} '
+          f'(one card: no multi-card speed is measured)', flush=True)
+    for name, m in (('freq1', mesh), ('freq2', sharded)):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            enhancer.enhance_session(['S02'], out / name,
+                                     audio_dir_exist_ok=True,
+                                     dataset_slice=FREQ_UTTERANCES, mesh=m)
+        print(f'{name}: {FREQ_UTTERANCES} utterances in '
+              f'{time.perf_counter() - start:.4f} s', flush=True)
+    deviation = wav_deviation(out / 'freq1', out / 'freq2')
+    print(f'freq = 2 against freq = 1: {deviation:.3e} of the peak (gate '
+          f'{FREQ_DEVIATION})', flush=True)
+    check(deviation <= FREQ_DEVIATION,
+          f'freq sharding deviates by {deviation:.3e} of the peak')
+    return mesh_launches, k1
+
+
+def run_workers(commands, label):
+    """Start every (argv, env) at once, wait for all (killing them past
+    WORKER_TIMEOUT); returns their standard outputs."""
+    import os
+    procs = [subprocess.Popen(argv, env={**os.environ, **env}, cwd=REPO,
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for argv, env in commands]
+    outs = []
+    try:
+        for p in procs:
+            out, err = p.communicate(timeout=WORKER_TIMEOUT)
+            check(p.returncode == 0 and 'WORKER_OK' in out,
+                  f'{label}: a worker failed ({p.returncode}):\n'
+                  f'{out[-2000:]}\n{err[-3000:]}')
+            outs.append(out)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    return outs
+
+
+def wav_hashes(audio_dir):
+    import hashlib
+    return {p.relative_to(audio_dir).as_posix():
+            hashlib.sha256(p.read_bytes()).hexdigest()
+            for p in Path(audio_dir).rglob('*.wav')}
+
+
+def parallel_processes(torch, work, examples):
+    """Phase 12.3-12.4: two ``PB_JOB_ID`` jobs and two gloo processes
+    (``testing/mp_worker.py`` on cuda:0, default config, phase 4's
+    corpus) against one serial worker; the first utterance of a fresh
+    process with and without ``Enhancer.warmup``; ``fast_start`` on P06."""
+    import dataclasses as dc
+    import socket
+
+    import numpy as np
+    from pb_chime5_tpu_torch.models.enhancer import get_enhancer
+    from pb_chime5_tpu_torch.models.gss import GssConfig
+    from pb_chime5_tpu_torch.parallel.scheduler import length_balanced_shard
+    db = work / 'chime5.json'
+    root = work / 'workers'
+
+    def worker(mode, audio, **options):
+        argv = [sys.executable, '-m', 'pb_chime5_tpu_torch.testing.mp_worker',
+                '--json-path', str(db), '--audio-dir', str(audio), '--mode',
+                mode, '--device', 'cuda', '--config', 'default']
+        for key, value in options.items():
+            argv += ['--' + key.replace('_', '-'), str(value)]
+        return argv
+
+    env = {'PYTHONPATH': str(REPO)}
+    enhancer = get_enhancer(multiarray=True, database_path=str(db),
+                            device='cuda')
+    it = list(enhancer.get_iterator('S02'))
+
+    def length(ex):
+        ns = ex['num_samples']
+        return ns['original'] if isinstance(ns, dict) else ns
+    shares = [{ex['example_id'] for ex in length_balanced_shard(
+        it, length, k, 2)} for k in range(2)]
+
+    start = time.perf_counter()        # the serial worker beside the jobs
+    outs = run_workers(
+        [(worker('serial', root / 'serial'), env)]
+        + [(worker('jobs', root / 'jobs'),
+            {**env, 'PB_JOB_ID': str(job), 'PB_NUM_JOBS': '2'})
+           for job in (1, 2)], 'serial worker and PB_JOB_ID jobs')[1:]
+    serial = wav_hashes(root / 'serial')
+    check(len(serial) == len(it), f'the serial worker wrote {len(serial)} '
+                                  f'of {len(it)} WAVs')
+    written = [{line.split()[1] for line in o.splitlines()
+                if line.startswith('FINISHED')} for o in outs]
+    jobs_ok = wav_hashes(root / 'jobs') == serial and written == shares
+    print(f'two PB_JOB_ID jobs: {[len(w) for w in written]} utterances '
+          f'(shares {[len(s) for s in shares]}) in '
+          f'{time.perf_counter() - start:.2f} s; union byte-identical to '
+          f'the serial run and each job its share: {jobs_ok}', flush=True)
+    check(jobs_ok, 'the two jobs did not write the serial run, each its '
+                   'length-balanced share once')
+
+    with socket.socket() as s:
+        s.bind(('localhost', 0))
+        port = s.getsockname()[1]
+    start = time.perf_counter()
+    outs = run_workers(
+        [(worker('distributed', root / 'gloo' / 'audio', rank=r, world=2,
+                 coordinator=f'localhost:{port}', run_id=12), env)
+         for r in range(2)], 'gloo processes')
+    ids = [(root / 'gloo' / f'broadcast_{r}.txt').read_text()
+           for r in range(2)]
+    gloo_ok = wav_hashes(root / 'gloo' / 'audio') == serial \
+        and ids == ['12', '12'] \
+        and [o.count('FINISHED') for o in outs] == [len(s) for s in shares]
+    print(f'two gloo processes: run ids {ids}, union byte-identical to the '
+          f'serial run: {gloo_ok} ({time.perf_counter() - start:.2f} s)',
+          flush=True)
+    check(gloo_ok, 'the two gloo processes did not write the serial run')
+
+    probes = {}
+    for mode in ('cold', 'warm'):
+        proc = subprocess.run(
+            [sys.executable, '-c', WARMUP_PROBE, str(REPO), str(db),
+             str(root / f'first_{mode}'), mode], cwd=REPO,
+            capture_output=True, text=True, timeout=WORKER_TIMEOUT)
+        lines = [line for line in proc.stdout.splitlines()
+                 if line.startswith('WARMUP_PROBE ')]
+        check(proc.returncode == 0 and lines,
+              f'warmup probe ({mode}) failed:\n{proc.stderr[-3000:]}')
+        probes[mode] = json.loads(lines[-1].split(' ', 1)[1])
+        print(f'fresh process, {mode}', json.dumps(probes[mode]), flush=True)
+    warm = probes['warm']
+    check(warm['builds_loads_after'] == warm['builds_loads_before']
+          and not warm['imported_jax'],
+          f'a build or library load after warmup: {warm}')
+    check(same_wavs(root / 'first_cold', root / 'first_warm'),
+          'the warmed first utterance differs from the cold one')
+    print(f'first utterance of a fresh process: '
+          f'{probes["cold"]["first_utterance_s"]:.4f} s cold, '
+          f'{warm["first_utterance_s"]:.4f} s after a '
+          f'{warm["warmup_s"]:.4f} s warmup', flush=True)
+
+    ex = max(examples, key=observation_seconds)
+    split = dc.replace(enhancer, gss_config=GssConfig(
+        compile_mode='fast_start'))
+    x_fused = enhancer.enhance_example(ex)
+    x_split = split.enhance_example(ex)
+    check(np.array_equal(x_fused, x_split),
+          'fast_start differs from the fused chain on P06')
+    print(f'fast_start on {ex["example_id"]}: bit-equal to the fused chain',
+          flush=True)
+
+
+def parallel_paths(torch, counts, fused_em, session, work, examples):
+    """Phase 12: the parallel session paths on the card; returns the
+    launches of the B = 4 mesh pass and K1's batched numbers."""
+    mesh_launches, k1 = parallel_sessions(torch, counts, fused_em, session,
+                                          work)
+    torch.cuda.empty_cache()
+    parallel_processes(torch, work, examples)
+    check(not imported_jax(), 'the run imported jax or the JAX package')
+    return mesh_launches, k1
+
+
 class LaunchCounts:
     """The launch counters of every kernel entry of the port."""
 
@@ -2390,6 +2954,11 @@ def main():
         xla_launches, f64_launches = xla_float64_paths(
             torch, counts, chol_solve, work / 'chime5.json', examples,
             session, scenes, float32_medians, work)
+        torch.cuda.empty_cache()
+        phase('12 the parallel session paths: the batched session, '
+              'frequency sharding, two jobs and two processes, warmup')
+        mesh_launches, k1_batched = parallel_paths(
+            torch, counts, fused_em, session, work, examples)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -2400,7 +2969,8 @@ def main():
                     'all-Pallas': pallas_launches,
                     'CHiME-6 track 1': track1_launches,
                     'CHiME-6 track 2 (RTTM)': track2_launches,
-                    "'xla' EM": xla_launches, 'float64': f64_launches}
+                    "'xla' EM": xla_launches, 'float64': f64_launches,
+                    'mesh': mesh_launches}
         return {'name': name, 'route': 'cuda',
                 'source': f'pb_chime5_tpu_torch/csrc/{source}',
                 'replaces': f'pb_chime5_tpu/ops/pallas/{replaces}',
@@ -2419,9 +2989,14 @@ def main():
     # earlier rows), and the relative floor of the default path, the
     # finalize (K3's row) and the MVDR solve's inverse (K4's row)
     kernels = [
+        # K1's row: the unbatched entry at the headline; under `entries`
+        # the batched entry on the mesh path's first B = 4 batch
         row('fused_em_scatter', 'fused_em.cu', 'fused_em.py:59',
             default_launches['fused_em_scatter'],
-            results['fused_em_scatter']),
+            results['fused_em_scatter'],
+            entries={'fused_em_scatter (batched, B = 4)': {
+                **k1_batched, 'launches': mesh_launches['fused_em_scatter'],
+                'path': 'mesh'}}),
         row('wpe_statistics', 'wpe_stats.cu', 'wpe_stats.py:54',
             pallas_launches['wpe_statistics'], results['wpe_statistics']),
         row("em_finalize (floor='flt_min')", 'gj_inverse.cu',

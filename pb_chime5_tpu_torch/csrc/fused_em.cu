@@ -41,6 +41,10 @@
 // GFLOP of the E-step alone at the headline.
 //
 // Design:
+//   * a batch of B utterances is one launch over their B * F rows (the
+//     JAX package's vmap of the pallas_call, which adds a grid axis): row
+//     f reads the gate and mask of utterance f / fper, nothing else
+//     changes, so B = 1 is the unbatched kernel;
 //   * a cluster of kCluster CTAs per frequency; chunk c of kChunk frames
 //     (frames 32c .. 32c + 31, fixed offsets) belongs to rank c % kCluster,
 //     so padding T with fm == 0 frames changes nothing, bit for bit;
@@ -198,11 +202,11 @@ fused_em_kernel(const float2* __restrict__ z,      // (F, T, D)
                 const float2* __restrict__ prec,   // (F, K, D, D)
                 const float* __restrict__ lw,      // (F, K)
                 const float* __restrict__ ld,      // (F, K)
-                const float* __restrict__ act,     // (K, T)
-                const float* __restrict__ fm,      // (T,)
+                const float* __restrict__ act_all, // (B, K, T)
+                const float* __restrict__ fm_all,  // (B, T)
                 float2* __restrict__ S,            // (F, K, D, D)
                 float* __restrict__ den,           // (F, K)
-                int T, int D, int K) {
+                int T, int D, int K, int fper) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   constexpr int dp = MAXD + 1;   // row strides of P and z, in float2
@@ -227,6 +231,9 @@ fused_em_kernel(const float2* __restrict__ z,      // (F, T, D)
   const int warp = tid >> 5;
   const float tiny = FLT_MIN;
   const float2* zf = z + (size_t)f * T * D;
+  // row f belongs to utterance f / fper of the batch: its gate and mask
+  const float* act = act_all + (size_t)(f / fper) * K * T;
+  const float* fm = fm_all + (size_t)(f / fper) * T;
   const int nchunks = (T + kChunk - 1) / kChunk;
 
   // chunk c's z rows, act columns and fm into buffer buf; fm is 0 past T
@@ -517,7 +524,7 @@ cudaError_t opt_in() {
 template <int MAXD>
 cudaError_t launch(const void* z, const void* prec, const void* lw,
                    const void* ld, const void* act, const void* fm, void* S,
-                   void* den, int F, int T, int D, int K,
+                   void* den, int F, int T, int D, int K, int fper,
                    cudaStream_t stream) {
   const cudaError_t err = opt_in<MAXD>();
   if (err != cudaSuccess) return err;
@@ -526,7 +533,7 @@ cudaError_t launch(const void* z, const void* prec, const void* lw,
       static_cast<const float2*>(z), static_cast<const float2*>(prec),
       static_cast<const float*>(lw), static_cast<const float*>(ld),
       static_cast<const float*>(act), static_cast<const float*>(fm),
-      static_cast<float2*>(S), static_cast<float*>(den), T, D, K);
+      static_cast<float2*>(S), static_cast<float*>(den), T, D, K, fper);
   return cudaGetLastError();
 }
 
@@ -535,21 +542,36 @@ cudaError_t launch(const void* z, const void* prec, const void* lw,
 extern "C" {
 
 // Launch on `stream`; returns the cudaError_t of the launch (0 = success).
-int pb_fused_em_scatter(const void* z, const void* prec, const void* lw,
-                        const void* ld, const void* act, const void* fm,
-                        void* S, void* den, int F, int T, int D, int K,
-                        void* stream) {
-  if (F < 1 || T < 1 || D < 1 || D > kMaxD || K < 1 || K > kMaxK)
+// A batch of B utterances: z, prec, lw, ld, S and den hold F = B * fper
+// rows, utterance b's rows b * fper .. (b + 1) * fper - 1, which read
+// act + b K T and fm + b T.  One launch for the whole batch; B = 1
+// (fper = F) is the unbatched entry.
+int pb_fused_em_scatter_batched(const void* z, const void* prec,
+                                const void* lw, const void* ld,
+                                const void* act, const void* fm, void* S,
+                                void* den, int F, int T, int D, int K,
+                                int fper, void* stream) {
+  if (F < 1 || T < 1 || D < 1 || D > kMaxD || K < 1 || K > kMaxK ||
+      fper < 1 || F % fper != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (D <= 8)
-    err = launch<8>(z, prec, lw, ld, act, fm, S, den, F, T, D, K, st);
+    err = launch<8>(z, prec, lw, ld, act, fm, S, den, F, T, D, K, fper, st);
   else if (D <= 16)
-    err = launch<16>(z, prec, lw, ld, act, fm, S, den, F, T, D, K, st);
+    err = launch<16>(z, prec, lw, ld, act, fm, S, den, F, T, D, K, fper, st);
   else
-    err = launch<24>(z, prec, lw, ld, act, fm, S, den, F, T, D, K, st);
+    err = launch<24>(z, prec, lw, ld, act, fm, S, den, F, T, D, K, fper, st);
   return static_cast<int>(err);
+}
+
+// The unbatched entry: act (K, T) and fm (T,) for all F rows.
+int pb_fused_em_scatter(const void* z, const void* prec, const void* lw,
+                        const void* ld, const void* act, const void* fm,
+                        void* S, void* den, int F, int T, int D, int K,
+                        void* stream) {
+  return pb_fused_em_scatter_batched(z, prec, lw, ld, act, fm, S, den, F, T,
+                                     D, K, F, stream);
 }
 
 }  // extern "C"

@@ -11,7 +11,14 @@ otherwise it is read and uploaded per utterance
 (:meth:`GssPipeline.dispatch`).  ``compute_dtype`` float32 (the hand
 kernels) or float64 (plain PyTorch, as the JAX package computes in
 float64 when asked); :meth:`Enhancer.debug_example` runs the debug twin.
-Not ported yet (ROADMAP.md, Queue 1): the mesh loop and warmup.
+
+With a ``mesh`` (``parallel/mesh.py``) the session loop collates
+same-bucket utterances into batches (``parallel/batch_driver.py``), each
+run over the mesh's (data, freq) devices with every kernel launch over
+all of a data group's utterances.  A shard from
+``FileQueueScheduler.shard`` gets each utterance marked complete once its
+WAV is written.  :meth:`Enhancer.warmup` readies the card for a
+session's shapes ahead of its first utterance.
 """
 
 import dataclasses
@@ -30,6 +37,7 @@ from pb_chime5_tpu_torch.models.audio_cache import (
     CachedWindow, SessionAudioCache)
 from pb_chime5_tpu_torch.models.gss import GssConfig, GssPipeline
 from pb_chime5_tpu_torch.ops.stft import istft, samples_to_stft_frames, stft
+from pb_chime5_tpu_torch.parallel import distributed
 from pb_chime5_tpu_torch.parallel.scheduler import length_balanced_shard
 from pb_chime5_tpu_torch.utils import activity_time_to_frequency
 
@@ -77,14 +85,19 @@ class Activity:
 
 
 def async_session_pump(items, prepare, dispatch, finish, id_of, *,
-                       on_error='raise', prefetch=2, write_ahead=4):
-    """Prefetch / dispatch-ahead / writer pump of the serial session loop.
+                       on_error='raise', prefetch=2, write_ahead=4,
+                       flush=None):
+    """Prefetch / dispatch-ahead / writer pump of the session loops.
 
     ``prepare(item)`` runs on one prefetch thread (host I/O);
     ``dispatch(item, prepared)`` on the calling thread (asynchronous
-    device dispatch); ``finish(*args)`` on one writer thread (waits for
-    the device result and writes the WAV).  ``on_error='raise'``
-    re-raises a failure, ``'skip'`` prints it and continues.
+    device dispatch) returns the arguments of ``finish``, or None while it
+    holds the item back (the mesh loop's batch that is not full yet);
+    ``finish(*args)`` runs on one writer thread (waits for the device
+    result and writes the WAVs).  ``flush()``, once the items run out,
+    returns (label, arguments of ``finish``) for what is still held.
+    ``on_error='raise'`` re-raises a failure, ``'skip'`` prints it and
+    continues.
     """
     import collections
     import concurrent.futures
@@ -125,9 +138,12 @@ def async_session_pump(items, prepare, dispatch, finish, id_of, *,
             except Exception:
                 handle_error(item_id)
                 continue
-            pending.append((item_id, writer.submit(finish, *args)))
+            if args is not None:
+                pending.append((item_id, writer.submit(finish, *args)))
             while len(pending) > write_ahead:
                 drain(*pending.popleft())
+        for label, args in (flush() if flush is not None else ()):
+            pending.append((label, writer.submit(finish, *args)))
         while pending:
             drain(*pending.popleft())
 
@@ -257,25 +273,43 @@ class Enhancer:
             resume=False,
             on_error='raise',
             write_ahead=4,
+            mesh=None,
+            utterances_per_device=1,
     ):
         """Enhance all utterances of the given session(s) into
         ``audio_dir/<dataset>/<example_id>.wav``.
 
-        ``shard_fn(examples, length_fn)`` selects this process's subset;
+        ``shard_fn(examples, length_fn)`` selects this process's subset
+        (default: the length-balanced share of this process, see
+        ``parallel/scheduler.py``; ``serial_shard`` for all of them,
+        ``FileQueueScheduler(...).shard`` for dynamic pulling: a shard
+        with ``mark_complete`` has each example marked complete once its
+        WAV is written, and a resumed one when it is skipped);
         ``resume=True`` skips examples whose WAV exists; ``on_error``
-        'raise' or 'skip'; ``write_ahead`` bounds the utterances in
-        flight on the device while earlier results are written.  With
-        the session-audio cache on, the shard is dispatched in session
-        time order, and one ``session-audio cache: {...}`` line prints
-        the cache's stats of this call.
+        'raise' or 'skip'; ``write_ahead`` bounds the utterances (with a
+        mesh, the batches) in flight on the device while earlier results
+        are written.  With the session-audio cache on, a list shard is
+        dispatched in session time order, and one ``session-audio cache:
+        {...}`` line prints the cache's stats of this call.
+
+        ``mesh`` (``parallel.mesh.make_mesh``): collate same-bucket
+        utterances into batches of data x ``utterances_per_device`` rows,
+        each run over the mesh's devices (:meth:`_session_loop_mesh`).
         """
         audio_dir = Path(audio_dir)
         it = self.get_iterator(session_ids)
 
+        error = None
         if is_master:
-            audio_dir.mkdir(exist_ok=audio_dir_exist_ok, parents=True)
-            for dataset in set(mapping.session_to_dataset.values()):
-                (audio_dir / dataset).mkdir(exist_ok=True)
+            try:
+                audio_dir.mkdir(exist_ok=audio_dir_exist_ok, parents=True)
+                for dataset in set(mapping.session_to_dataset.values()):
+                    (audio_dir / dataset).mkdir(exist_ok=True)
+            except OSError as e:
+                error = e
+        # in a process group no process writes before the master's dirs
+        # exist, and none goes on when the master could not make them
+        distributed.raise_together(error)
 
         if dataset_slice is not False:
             if dataset_slice is True:
@@ -292,6 +326,11 @@ class Enhancer:
             return ns['original'] if isinstance(ns, dict) else ns
 
         shard = shard_fn(list(it), length_fn)
+        # a dynamic scheduler's shard: its done markers are written here,
+        # once a WAV is durable, never when the shard yields (this loop
+        # prefetches and dispatches ahead), so a crashed worker leaves
+        # only re-claimable claims
+        mark_complete = getattr(shard, 'mark_complete', None)
         if self._audio_cache is not None and isinstance(shard, (list,
                                                                 tuple)):
             # the session iterator is speaker-grouped (P05_*, P06_*, ...),
@@ -299,11 +338,19 @@ class Enhancer:
             # and the rolling window would refill K times over; outputs
             # are independent files, so the dispatch order is free
             shard = sorted(shard, key=_example_start_key)
-        todo = [
-            ex for ex in shard
-            if not (resume and (
-                audio_dir / mapping.session_to_dataset[ex['session_id']]
-                / f"{ex['example_id']}.wav").exists())]
+
+        def todo_gen():
+            # lazily: a dynamic scheduler claims on pull
+            for ex in shard:
+                if resume and (
+                        audio_dir
+                        / mapping.session_to_dataset[ex['session_id']]
+                        / f"{ex['example_id']}.wav").exists():
+                    if mark_complete is not None:
+                        mark_complete(ex['example_id'])
+                    continue
+                yield ex
+        todo = todo_gen()
 
         def finish(example_id, session_id, handle):
             # writer thread: waits for the device result, writes the WAV
@@ -311,6 +358,8 @@ class Enhancer:
             assert x_hat.ndim == 1, x_hat.shape
             dataset = mapping.session_to_dataset[session_id]
             dump_audio(x_hat, audio_dir / dataset / f'{example_id}.wav')
+            if mark_complete is not None:
+                mark_complete(example_id)
             if progress is not None:
                 progress(example_id)
 
@@ -324,11 +373,157 @@ class Enhancer:
             # run's wasteful-schedule disable (or its stale window)
             self._audio_cache.new_run()
         cache_since = self._cache_stats_snapshot()
-        async_session_pump(
-            todo, functools.partial(self._prepare_example, use_cache=True),
-            dispatch, finish, lambda ex: ex['example_id'],
-            on_error=on_error, write_ahead=write_ahead)
+        prepare = functools.partial(self._prepare_example, use_cache=True)
+        if mesh is not None:
+            self._session_loop_mesh(
+                todo, prepare, mesh, utterances_per_device, audio_dir,
+                mark_complete, progress, on_error, write_ahead)
+        else:
+            async_session_pump(
+                todo, prepare, dispatch, finish, lambda ex: ex['example_id'],
+                on_error=on_error, write_ahead=write_ahead)
         self._log_cache_stats(cache_since)
+
+    def _session_loop_mesh(self, todo, prepare, mesh, utterances_per_device,
+                           audio_dir, mark_complete, progress, on_error,
+                           write_ahead):
+        """The mesh variant of the session loop (the JAX
+        ``_session_loop_mesh``): the same pump, with utterances collated
+        by the :class:`BatchDispatcher` and each full bucket group run as
+        one batch over the mesh; ``write_ahead`` bounds the batches in
+        flight.  Cached and direct utterances form separate groups."""
+        from pb_chime5_tpu_torch.parallel.batch_driver import BatchDispatcher
+
+        if (utterances_per_device > 1 and self.gss_config.wpe
+                and self.gss_config.wpe_chunk_size is None):
+            # unchunked WPE holds the (F, taps*D, T) stacked signal (~2.6 GB
+            # at the 24-channel headline shape) for every row of a batch
+            print('WARNING: utterances_per_device > 1 with unchunked WPE: '
+                  'consider GssConfig(wpe_chunk_size=512) to bound the '
+                  'memory of each row (the same sums, reassociated)',
+                  flush=True)
+        dispatcher = BatchDispatcher(
+            mesh, self._pipeline, utterances_per_device=utterances_per_device)
+
+        def dispatch(ex, prepared):
+            reference_array, obs = prepared
+            activity_freq, target_index, start_cf, end_cf = self._device_args(
+                self._example_activity(ex, reference_array),
+                ex['speaker_id'], ex)
+            kw = dict(start_context_frames=start_cf, end_context_frames=end_cf,
+                      tag=(ex['example_id'], ex['session_id'],
+                           self._trim(ex, reference_array)))
+            if isinstance(obs, CachedWindow):
+                batch = dispatcher.add_cached(
+                    obs.buf, obs.offsets, obs.num_valid_samples,
+                    activity_freq, target_index, **kw)
+            else:
+                batch = dispatcher.add(obs, activity_freq, target_index, **kw)
+            return None if batch is None else (batch,)
+
+        def write_batch(batch):
+            # writer thread: waits for the batch, trims and writes its rows
+            for (example_id, session_id, trim), x_hat in batch.gather():
+                if trim is not None:
+                    x_hat = x_hat[..., trim[0]:trim[0] + trim[1]]
+                dataset = mapping.session_to_dataset[session_id]
+                dump_audio(x_hat, audio_dir / dataset / f'{example_id}.wav')
+                if mark_complete is not None:
+                    mark_complete(example_id)
+                if progress is not None:
+                    progress(example_id)
+
+        def flush():
+            return [([item.tag[0] for item in batch.items], (batch,))
+                    for batch in dispatcher.flush()]
+
+        # prefetch enough to fill a batch while the previous one runs
+        async_session_pump(
+            todo, prepare, dispatch, write_batch, lambda ex: ex['example_id'],
+            on_error=on_error, prefetch=max(2, dispatcher.batch_size),
+            write_ahead=max(1, write_ahead), flush=flush)
+
+    def warmup(self, session_id, *, lengths=None, parallel=True, mesh=None,
+               utterances_per_device=1):
+        """Ready the card for a session's real shapes before its first
+        utterance (the JAX ``Enhancer.warmup``): the channel counts of its
+        multi-array selections, the class count of its activity, the
+        observation dtype of its audio files, the length buckets its
+        utterances fall in (``lengths``: these instead), the device-trim
+        output buckets it will dispatch, and the session-audio window's
+        variants when the cache is on; through
+        :meth:`GssPipeline.warmup`, or with ``mesh`` (and
+        ``utterances_per_device``, as given to :meth:`enhance_session`)
+        :meth:`GssPipeline.warmup_mesh`.  Unlike JAX, which compiles every
+        bucket of ``length_buckets`` by default, the default is the
+        session's own buckets: the port runs a dispatch per bucket."""
+        it = self.get_iterator(session_id)
+        ex = next(iter(it))
+        try:
+            # CHiME-6 multiarray sessions may carry no 'ref' tag; only the
+            # multiarray=False paths need the reference array
+            reference_array = self._resolve_reference_array(ex)
+        except Exception:
+            reference_array = None
+
+        def shape_of(example):
+            spans = self._cache_spans(example, reference_array)
+            n, first = 0, None
+            for paths, _s, _e, sel in spans:
+                if not isinstance(paths, (list, tuple)):
+                    paths = [paths]
+                if first is None:
+                    first = paths[0]
+                n += len(list(range(len(paths)))[sel]
+                         if isinstance(sel, slice) else sel)
+            return n, len(spans), first
+
+        # per-example dropped arrays give some utterances another channel
+        # count: warm every distinct shape the session will dispatch
+        shapes, buckets, trim_buckets = {}, set(), set()
+        pipeline = self._pipeline
+        for example in it:
+            n, a, first = shape_of(example)
+            shapes.setdefault((n, a), first)
+            spans = self._cache_spans(example, reference_array)
+            n_samples = min(int(s[2]) - int(s[1]) for s in spans)
+            n_pad = pipeline.bucket_length(n_samples)
+            buckets.add(n_pad)
+            try:
+                trim = self._trim(example, reference_array)
+            except Exception:       # no reference array: no trim to warm
+                trim = None
+            if pipeline.device_trim and mesh is None and trim is not None \
+                    and 0 <= trim[0] and trim[0] + trim[1] <= n_samples:
+                out_pad = pipeline.output_bucket(trim[1], n_pad)
+                if out_pad is not None:
+                    trim_buckets.add((n_pad, out_pad))
+        if lengths is None:
+            lengths = sorted(buckets)
+        num_classes = len(self._example_activity(ex, reference_array))
+        for (num_channels, num_arrays), first_path in shapes.items():
+            probe = load_audio(first_path, start=0, stop=1, dtype=None)
+            dtype = (np.int16 if probe.dtype == np.int16
+                     and np.dtype(self.compute_dtype) == np.float32
+                     else self.compute_dtype)
+            cache_kw = {}
+            if self._audio_cache is not None:
+                # buckets longer than the window never dispatch through it
+                w, m = self._audio_cache.window, self._audio_cache.margin
+                cache_kw = dict(
+                    num_arrays=num_arrays, cache_window_samples=w,
+                    cache_lengths=[n for n in lengths
+                                   if pipeline.bucket_length(n) + m <= w])
+            if mesh is not None:
+                pipeline.warmup_mesh(
+                    mesh, num_channels, num_classes, dtype=dtype,
+                    lengths=lengths, parallel=parallel,
+                    utterances_per_device=utterances_per_device, **cache_kw)
+            else:
+                pipeline.warmup(
+                    num_channels, num_classes, dtype=dtype, lengths=lengths,
+                    parallel=parallel, trim_buckets=sorted(trim_buckets),
+                    **cache_kw)
 
     def _log_cache_stats(self, since=None):
         """One line per enhance_session call: how the session-audio cache

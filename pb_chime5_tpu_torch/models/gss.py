@@ -14,6 +14,16 @@ dispatch / gather.  :func:`gss_enhance_debug` and
 unfused EM's per-iteration statistics.  Layouts match the JAX package:
 (F, D, T) through WPE and the beamformer, (F, T, D) into the EM, masks
 (K, T, F) out.
+
+The stages also take a batch of B same-shape utterances (a leading B
+axis, per-utterance activity, frame mask, target, context frames and
+MVDR reference channel): WPE and the EM run its B * F rows in each kernel
+launch.  :func:`enhance_spectrogram` is the frequency-domain middle on any
+shard of the frequency axis; ``parallel/mesh.py`` drives both over a
+(data, freq) grid of devices.  A batch of one gives the unbatched chain's
+numbers bit for bit.  :meth:`GssPipeline.warmup` and
+:meth:`GssPipeline.warmup_mesh` build and load the kernel libraries and
+make one dispatch per length bucket ahead of a session.
 """
 
 import contextlib
@@ -31,7 +41,9 @@ from pb_chime5_tpu_torch.ops.stft import (
 from pb_chime5_tpu_torch.ops.wpe import wpe
 
 __all__ = ['GssConfig', 'gss_enhance', 'gss_enhance_cached',
-           'gss_enhance_debug', 'GssPipeline', 'record_stage_times']
+           'gss_enhance_debug', 'gss_enhance_split',
+           'gss_enhance_cached_split', 'enhance_spectrogram', 'GssPipeline',
+           'record_stage_times']
 
 _ROADMAP = 'not ported yet (see ROADMAP.md, Queue 1)'
 BEAMFORMERS = ('mvdrSouden_ban', 'mvdr_souden', 'gev_ban', 'gev', 'lcmv',
@@ -39,6 +51,7 @@ BEAMFORMERS = ('mvdrSouden_ban', 'mvdr_souden', 'gev_ban', 'gev', 'lcmv',
 FLOAT64_BEAMFORMERS = ('gev_ban', 'gev', 'lcmv', 'lcmv_ban')   # _beamform
 
 STAGES = ('stft', 'wpe', 'em', 'beamform', 'istft')
+MVDR_EPS = 1e-10
 _stage_events = None     # CUDA events of gss_enhance inside record_stage_times
 
 
@@ -76,7 +89,9 @@ class GssConfig:
     """Pipeline configuration: the JAX ``GssConfig`` fields and defaults.
 
     TPU-only implementation choices keep their names and accept their
-    defaults and the ported kernels: the all-Pallas configuration
+    defaults and the ported kernels (``compile_mode='fast_start'`` runs
+    the one eager chain of :func:`gss_enhance`, which has no compile to
+    split into the JAX package's three programs): the all-Pallas configuration
     ``GssConfig(bss_em_backend='pallas', bss_inverse='pallas_gj',
     wpe_stats_backend='pallas')`` runs the statistics and Gauss-Jordan
     kernels beside the fused E+M kernel; ``bss_em_backend='xla'`` runs the
@@ -131,7 +146,7 @@ class GssConfig:
                 'auto', 'xla', 'pallas'),
             'bf': self.bf in BEAMFORMERS,
             'postfilter': self.postfilter in (None, 'mask_mul'),
-            'compile_mode': self.compile_mode == 'fused',
+            'compile_mode': self.compile_mode in ('fused', 'fast_start'),
         }
         for name, ok in checks.items():
             if not ok:
@@ -162,98 +177,200 @@ class GssConfig:
 def _stft_and_mask(obs, num_valid_samples, config: GssConfig):
     """obs (D, N) int16 or float tensor -> (Obs (F, D, T), frame_mask (T,)
     bool or None, N).  int16 PCM is scaled by 2^-15 on the device, in
-    float32, the one compute dtype that uploads it (as in JAX)."""
+    float32, the one compute dtype that uploads it (as in JAX).  A batch
+    obs (B, D, N) with ``num_valid_samples`` a sequence of B ints gives
+    Obs (B, F, D, T) and frame_mask (B, T)."""
     if obs.dtype == torch.int16:
         obs = obs.to(torch.float32) * (2.0 ** -15)
     N = obs.shape[-1]
     size, shift = config.stft_size, config.stft_shift
-    Obs = stft(obs, size, shift, fading=config.stft_fading)    # (D, T, F)
+    Obs = stft(obs, size, shift, fading=config.stft_fading)  # (..., D, T, F)
     T = Obs.shape[-2]
-    Obs = Obs.permute(2, 0, 1)                                 # (F, D, T)
+    # (..., F, D, T), contiguous: every (utterance, frequency) row's
+    # products then see one layout, whatever the batch, and a row of a
+    # batch rounds as the unbatched chain does
+    Obs = Obs.movedim(-1, -3).contiguous()
     frame_mask = None
     if num_valid_samples is not None:
-        frame_mask = valid_frame_mask(
-            num_valid_samples, T, size, shift, fading=config.stft_fading,
-            device=obs.device)
+        def mask(n):
+            return valid_frame_mask(n, T, size, shift,
+                                    fading=config.stft_fading,
+                                    device=obs.device)
+        frame_mask = (mask(num_valid_samples) if obs.dim() == 2
+                      else torch.stack([mask(n) for n in num_valid_samples]))
     return Obs, frame_mask, N
 
 
+def _row_frame_mask(frame_mask, F):
+    """A batch's frame mask (B, T) per (utterance, frequency) row,
+    (B * F, T); B = 1 as the unbatched (T,)."""
+    if frame_mask is None or frame_mask.shape[0] == 1:
+        return None if frame_mask is None else frame_mask[0]
+    return frame_mask.repeat_interleave(F, dim=0)
+
+
 def _wpe_stage(Obs_fdt, config: GssConfig, frame_mask):
+    """WPE of (F, D, T), or of a batch (B, F, D, T) as its B * F rows (each
+    row with its utterance's frame mask)."""
     if not config.wpe:
         return Obs_fdt
+    shape = Obs_fdt.shape
+    if Obs_fdt.dim() == 4:
+        Obs_fdt = Obs_fdt.reshape(-1, *shape[2:])
+        frame_mask = _row_frame_mask(frame_mask, shape[1])
     return wpe(Obs_fdt, taps=config.wpe_taps, delay=config.wpe_delay,
                iterations=config.wpe_iterations,
                psd_context=config.wpe_psd_context,
                regularization=config.wpe_regularization,
                chunk_size=config.wpe_chunk_size, frame_mask=frame_mask,
                stats_backend=config.wpe_stats_backend,
-               solve_refine=config.wpe_solve_refine)
+               solve_refine=config.wpe_solve_refine).reshape(shape)
 
 
 def _em_stage(Obs_fdt, activity_freq, config: GssConfig, frame_mask):
-    return cacgmm_posteriors(Obs_fdt.transpose(1, 2), activity_freq,
+    """EM posteriors (F, K, T), or (B, F, K, T) of a batch (B, F, D, T),
+    activity (B, K, T), frame_mask (B, T); a batch of one runs as the
+    unbatched call."""
+    if Obs_fdt.dim() == 4 and Obs_fdt.shape[0] == 1:
+        return _em_stage(Obs_fdt[0], activity_freq[0], config,
+                         None if frame_mask is None else frame_mask[0])[None]
+    return cacgmm_posteriors(Obs_fdt.transpose(-2, -1), activity_freq,
                              config=config.cacgmm_config,
-                             frame_mask=frame_mask)            # (F, K, T)
+                             frame_mask=frame_mask)
 
 
-def _beamform(Obs_fdt, target_mask, distortion_mask, noise_mask,
-              config: GssConfig):
-    """Obs (F, D, T), masks (F, T) -> X_hat (F, T).  LCMV takes the
-    garbage class (``noise_mask``, the last class) as noise and the other
-    speakers as interference; 'ch2' / 'sum' bypass the masks.
+def _bf_front(Obs_fdt, masks, target_index, config: GssConfig,
+              start_context_frames, end_context_frames, frame_mask):
+    """The beamformer up to what needs every frequency of an utterance:
+    Obs (B, F, D, T), masks (B, F, K, T), the target index and context
+    frames B host ints each, frame_mask (B, T) or None -> (state of
+    :func:`_bf_back`, the MVDR reference channel's (num, den) (B, D) or
+    None).  ``mvdrSouden`` sums those statistics over frequency, so a
+    frequency shard's must be summed over the shards in between
+    (``parallel/mesh.py``).
 
-    GEV and LCMV compute their PSDs and vectors in float64 (the vector is
-    applied in the input's precision).  Their loads (1e-10 relative) are
-    below float32's resolution: where the EM leaves the noise class a
-    frame or two of mass, the equilibrated noise PSD reaches a condition
-    near 1e9 and a float32 vector is rounding noise; the JAX package's
-    float32 and float64 chains then differ by more than the peak
+    Context frames are dropped from the masks; LCMV takes the garbage
+    class (the last one) as noise and the other speakers as interference;
+    'ch2' / 'sum' bypass the masks.  GEV and LCMV compute their PSDs and
+    vectors in float64 (the vector is applied in the input's precision).
+    Their loads (1e-10 relative) are below float32's resolution: where the
+    EM leaves the noise class a frame or two of mass, the equilibrated
+    noise PSD reaches a condition near 1e9 and a float32 vector is
+    rounding noise; the JAX package's float32 and float64 chains then
+    differ by more than the peak
     (``scripts_dev/diag_torch_scene_precision.py``)."""
+    B, F, D, T = Obs_fdt.shape
+    frame_idx = torch.arange(T, device=Obs_fdt.device)
+    keep = torch.stack([(frame_idx >= int(s)) & (frame_idx < T - int(e))
+                        for s, e in zip(start_context_frames,
+                                        end_context_frames)])     # (B, T)
+    if frame_mask is not None:
+        keep = keep & frame_mask
+    masks = masks * keep[:, None, None, :].to(masks.dtype)
+    target_mask = torch.stack([masks[b, :, int(k)]
+                               for b, k in enumerate(target_index)])
+    distortion_mask = masks.sum(dim=2) - target_mask          # (B, F, T)
+    state = dict(Obs=Obs_fdt, masks=masks, target_mask=target_mask)
     kind = config.bf
-    if kind == 'ch2':
-        return Obs_fdt[:, 2, :]
-    if kind == 'sum':
-        return Obs_fdt.sum(dim=1)
-    Y = Obs_fdt
+    if kind in ('ch2', 'sum'):
+        return state, None
+
+    def rows(x):
+        return x.reshape(B * F, *x.shape[2:])
+    Y = rows(Obs_fdt)
+    target_r, distortion_r = rows(target_mask), rows(distortion_mask)
+    noise_r = rows(masks[:, :, -1])
     if kind in FLOAT64_BEAMFORMERS:
-        Y = Obs_fdt.to(torch.complex128)
-        target_mask, distortion_mask, noise_mask = (
-            m.to(torch.float64)
-            for m in (target_mask, distortion_mask, noise_mask))
-    cov_x = bf.psd_matrix(Y, target_mask)
+        Y = Y.to(torch.complex128)
+        target_r, distortion_r, noise_r = (
+            m.to(torch.float64) for m in (target_r, distortion_r, noise_r))
+    cov_x = bf.psd_matrix(Y, target_r)
     if kind in ('lcmv', 'lcmv_ban'):
-        cov_i = bf.psd_matrix(Y, distortion_mask - noise_mask)
-        cov_n = bf.psd_matrix(Y, noise_mask)
+        cov_i = bf.psd_matrix(Y, distortion_r - noise_r)
+        cov_n = bf.psd_matrix(Y, noise_r)
         w = bf.lcmv_vector(cov_x, cov_i, cov_n)
         if kind == 'lcmv_ban':
             w = bf.blind_analytic_normalization(w, cov_i + cov_n)
-        return bf.apply_beamforming_vector(w.to(Obs_fdt.dtype), Obs_fdt)
-    cov_n = bf.psd_matrix(Y, distortion_mask)
+        return dict(state, w=w), None
+    cov_n = bf.psd_matrix(Y, distortion_r)
     if kind in ('gev_ban', 'gev'):
         w = bf.gev_vector(cov_x, cov_n)
+        if kind.endswith('_ban'):
+            w = bf.blind_analytic_normalization(w, cov_n)
+        return dict(state, w=w), None
+    mat = bf.mvdr_souden_matrix(cov_x, cov_n, eps=MVDR_EPS)
+    stats = bf.snr_statistics(*(x.reshape(B, F, D, D)
+                                for x in (mat, cov_x, cov_n)))
+    return dict(state, mat=mat, cov_n=cov_n), stats
+
+
+def _bf_back(state, stats, config: GssConfig):
+    """The rest of the beamformer (:func:`_bf_front`): the MVDR reference
+    channel from the (summed) statistics, BAN, the apply and the
+    postfilter -> (X_hat (B, F, T), masks (B, F, K, T))."""
+    Obs, target_mask = state['Obs'], state['target_mask']
+    B, F, D, T = Obs.shape
+    kind = config.bf
+    if kind == 'ch2':
+        X_hat = Obs[:, :, 2, :]
+    elif kind == 'sum':
+        X_hat = Obs.sum(dim=2)
     else:
-        w = bf.mvdr_souden_vector(cov_x, cov_n, eps=1e-10)
-    if kind.endswith('_ban'):
-        w = bf.blind_analytic_normalization(w, cov_n)
-    return bf.apply_beamforming_vector(w.to(Obs_fdt.dtype), Obs_fdt)
+        w = state.get('w')
+        if w is None:
+            ref = bf.reference_channel(*stats, MVDR_EPS)          # (B,)
+            w = bf.select_channel(state['mat'].reshape(B, F, D, D),
+                                  ref).reshape(B * F, D)
+            if kind.endswith('_ban'):
+                w = bf.blind_analytic_normalization(w, state['cov_n'])
+        X_hat = bf.apply_beamforming_vector(
+            w.to(Obs.dtype), Obs.reshape(B * F, D, T)).reshape(B, F, T)
+    if config.postfilter == 'mask_mul':
+        X_hat = X_hat * target_mask.to(X_hat.dtype)
+    return X_hat, state['masks']
 
 
 def _bf_stage(Obs_fdt, masks, target_index, config: GssConfig,
-              start_context_frames, end_context_frames, frame_mask):
-    T = Obs_fdt.shape[-1]
-    frame_idx = torch.arange(T, device=Obs_fdt.device)
-    keep = (frame_idx >= start_context_frames) & \
-        (frame_idx < T - end_context_frames)
-    if frame_mask is not None:
-        keep = keep & frame_mask
-    masks = masks * keep.to(masks.dtype)
-    target_mask = masks[:, target_index, :]                    # (F, T)
-    distortion_mask = masks.sum(dim=1) - target_mask
-    X_hat = _beamform(Obs_fdt, target_mask, distortion_mask, masks[:, -1, :],
-                      config)
-    if config.postfilter == 'mask_mul':
-        X_hat = X_hat * target_mask.to(X_hat.dtype)
-    return X_hat, masks
+              start_context_frames, end_context_frames, frame_mask,
+              snr_reduce=None):
+    """Context drop, beamformer and postfilter: Obs (F, D, T), masks
+    (F, K, T), host ints -> (X_hat (F, T), masks); or a batch: Obs
+    (B, F, D, T), masks (B, F, K, T), B host ints each, frame_mask (B, T)
+    -> (X_hat (B, F, T), masks), each utterance with its own target,
+    context and MVDR reference channel.  ``snr_reduce`` sums the MVDR
+    reference channel's (B, D) statistics over frequency shards."""
+    if Obs_fdt.dim() == 3:
+        X_hat, masks = _bf_stage(
+            Obs_fdt[None], masks[None], [target_index], config,
+            [start_context_frames], [end_context_frames],
+            None if frame_mask is None else frame_mask[None], snr_reduce)
+        return X_hat[0], masks[0]
+    state, stats = _bf_front(Obs_fdt, masks, target_index, config,
+                             start_context_frames, end_context_frames,
+                             frame_mask)
+    if stats is not None and snr_reduce is not None:
+        stats = tuple(snr_reduce(x) for x in stats)
+    return _bf_back(state, stats, config)
+
+
+def enhance_spectrogram(Obs_fdt, activity_freq, target_index, *,
+                        config: GssConfig, start_context_frames=0,
+                        end_context_frames=0, frame_mask=None,
+                        snr_reduce=None):
+    """The frequency-domain middle of the chain: WPE -> EM -> context drop
+    -> beamformer.  Every step is independent per frequency except the
+    MVDR reference channel's statistics (``snr_reduce``), so it runs on
+    any shard of the frequency axis.
+
+    Obs_fdt (F, D, T) complex, activity_freq (K, T) -> (X_hat (F, T),
+    masks (F, K, T)); or a batch (B, F, D, T), (B, K, T), with the target
+    index and context frames B host ints each and frame_mask (B, T) ->
+    (X_hat (B, F, T), masks (B, F, K, T))."""
+    Obs_fdt = _wpe_stage(Obs_fdt, config, frame_mask)
+    masks = _em_stage(Obs_fdt, activity_freq, config, frame_mask)
+    return _bf_stage(Obs_fdt, masks, target_index, config,
+                     start_context_frames, end_context_frames, frame_mask,
+                     snr_reduce=snr_reduce)
 
 
 def _trim_output(x_hat, start, samples):
@@ -264,6 +381,44 @@ def _trim_output(x_hat, start, samples):
         return x_hat
     x_hat = torch.nn.functional.pad(x_hat, (0, samples))
     return x_hat[start:start + samples]
+
+
+def _gss_front(obs, num_valid_samples, *, config):
+    """STFT and WPE: (Obs (F, D, T), frame_mask (T,) or None)."""
+    device = obs.device
+    if device.type == 'cuda':
+        assert_precision()
+    _mark_stage(device, start=True)
+    Obs, frame_mask, _ = _stft_and_mask(obs, num_valid_samples, config)
+    _mark_stage(device)
+    Obs = _wpe_stage(Obs, config, frame_mask)
+    _mark_stage(device)
+    return Obs, frame_mask
+
+
+def _gss_em(Obs_fdt, activity_freq, frame_mask, *, config):
+    """The cacGMM masks (K, F, T)."""
+    device = Obs_fdt.device
+    masks = _em_stage(Obs_fdt, torch.as_tensor(activity_freq, device=device),
+                      config, frame_mask)
+    _mark_stage(device)
+    return masks
+
+
+def _gss_back(Obs_fdt, masks, target_index, start_context_frames,
+              end_context_frames, frame_mask, *, config, num_output_samples,
+              output_trim_start=0, output_trim_samples=None):
+    """Beamformer, iSTFT and output trim: (x_hat, masks (K, T, F))."""
+    device = Obs_fdt.device
+    X_hat, masks = _bf_stage(Obs_fdt, masks, int(target_index), config,
+                             int(start_context_frames),
+                             int(end_context_frames), frame_mask)
+    _mark_stage(device)
+    x_hat = istft(X_hat.T, config.stft_size, config.stft_shift,
+                  fading=config.stft_fading, num_samples=num_output_samples)
+    _mark_stage(device)
+    x_hat = _trim_output(x_hat, int(output_trim_start), output_trim_samples)
+    return x_hat, masks.permute(1, 2, 0)
 
 
 def gss_enhance(obs, activity_freq, target_index, *,
@@ -278,29 +433,25 @@ def gss_enhance(obs, activity_freq, target_index, *,
     ``num_valid_samples``, ``num_output_samples`` and the output trim
     have the JAX :func:`pb_chime5_tpu.models.gss.gss_enhance` meaning.
     Returns (x_hat, masks (K, T, F)), both on the device of ``obs``.
+
+    The chain is the JAX package's three stage programs (front: STFT and
+    WPE | EM | back: beamformer and iSTFT), which ``compile_mode=
+    'fast_start'`` compiles apart there; eager calls have no compile to
+    split, so both modes run this one chain.
     """
-    device = obs.device
-    if device.type == 'cuda':
-        assert_precision()
-    _mark_stage(device, start=True)
-    Obs, frame_mask, N = _stft_and_mask(obs, num_valid_samples, config)
-    _mark_stage(device)
-    Obs = _wpe_stage(Obs, config, frame_mask)
-    _mark_stage(device)
-    masks = _em_stage(Obs, torch.as_tensor(activity_freq, device=device),
-                      config, frame_mask)
-    _mark_stage(device)
-    X_hat, masks = _bf_stage(Obs, masks, int(target_index), config,
-                             int(start_context_frames),
-                             int(end_context_frames), frame_mask)
-    _mark_stage(device)
-    x_hat = istft(X_hat.T, config.stft_size, config.stft_shift,
-                  fading=config.stft_fading,
-                  num_samples=(num_output_samples
-                               if num_output_samples is not None else N))
-    _mark_stage(device)
-    x_hat = _trim_output(x_hat, int(output_trim_start), output_trim_samples)
-    return x_hat, masks.permute(1, 2, 0)                       # (K, T, F)
+    Obs, frame_mask = _gss_front(obs, num_valid_samples, config=config)
+    masks = _gss_em(Obs, activity_freq, frame_mask, config=config)
+    return _gss_back(
+        Obs, masks, target_index, start_context_frames, end_context_frames,
+        frame_mask, config=config,
+        num_output_samples=(num_output_samples
+                            if num_output_samples is not None
+                            else obs.shape[-1]),
+        output_trim_start=output_trim_start,
+        output_trim_samples=output_trim_samples)
+
+
+gss_enhance_split = gss_enhance     # the JAX name of the fast_start chain
 
 
 def gss_enhance_debug(obs, activity_freq, target_index, *,
@@ -377,6 +528,9 @@ def gss_enhance_cached(cache, offsets, activity_freq, target_index, *,
         num_output_samples=num_output_samples,
         output_trim_start=output_trim_start,
         output_trim_samples=output_trim_samples)
+
+
+gss_enhance_cached_split = gss_enhance_cached
 
 
 class GssPipeline:
@@ -573,3 +727,122 @@ class GssPipeline:
             num_output_samples=padded.shape[1])
         return (x_hat.cpu().numpy()[:N], masks.cpu().numpy(),
                 {k: v.cpu().numpy() for k, v in debug.items()})
+
+    # -------------------------------------------------------------- warmup --
+
+    @staticmethod
+    def _warmup_observation(shape, dtype):
+        """Seeded noise of ``shape`` in ``dtype`` (int16 PCM or float)."""
+        x = np.random.default_rng(0).standard_normal(shape, np.float32) * 0.1
+        return ((x * 2 ** 15).astype(np.int16) if dtype == np.int16
+                else x.astype(dtype))
+
+    def _warmup_activity(self, num_classes, N_pad, rows=()):
+        """Every class active on every frame: (rows, K, T) int8."""
+        return np.ones((*rows, num_classes, self.frame_count(N_pad)), np.int8)
+
+    def _warmup_lengths(self, lengths):
+        return sorted({self.bucket_length(n) for n in (
+            lengths if lengths is not None else self.length_buckets or ())})
+
+    @staticmethod
+    def _load_kernels(devices):
+        """Build (if needed) and load every kernel library, once, when a
+        device is a card."""
+        if any(torch.device(d).type == 'cuda' for d in devices):
+            from pb_chime5_tpu_torch.ops.kernels import _build
+            _build.load_libraries(_build.LIBRARIES)
+
+    def warmup(self, num_channels, num_classes, *, dtype=None, lengths=None,
+               parallel=True, cache_window_samples=None, num_arrays=None,
+               cache_lengths=None, trim_buckets=None):
+        """Ready the card for a session ahead of its first utterance: build
+        and load the kernel libraries, then one dispatch of a noise
+        observation at (``num_channels``, ``num_classes``, ``dtype``) per
+        length bucket of ``lengths`` (default: every bucket), per output
+        trim of ``trim_buckets`` ((bucket, output samples) pairs), and with
+        ``cache_window_samples`` (and ``num_arrays``) the same through the
+        session-audio window for ``cache_lengths`` (default: ``lengths``);
+        then wait for them.  Afterwards the session's dispatches start no
+        nvcc build and load no library (``ops/kernels/_build.stats``), and
+        cuFFT's plans and the allocator's blocks of these shapes exist.
+        The JAX package compiles these programs ahead of time; an eager
+        chain compiles nothing, so it runs them.  ``parallel``: enqueue
+        every dispatch before waiting (else wait for each in turn)."""
+        dtype = np.dtype(dtype if dtype is not None else self.dtype)
+        lengths = self._warmup_lengths(lengths)
+        trims = {}
+        for n_pad, out_pad in (trim_buckets or ()):
+            trims.setdefault(int(n_pad), set()).add(int(out_pad))
+        self._load_kernels([self.device])
+        handles = []
+
+        def run(handle):
+            if parallel:
+                handles.append(handle)
+            else:
+                self.gather(handle)
+
+        def variants(N_pad):        # (0, out_pad): device-trimmed to out_pad
+            return [None] + [(0, t) for t in sorted(trims.get(N_pad, ()))]
+        for N_pad in lengths:
+            obs = self._warmup_observation((num_channels, N_pad), dtype)
+            act = self._warmup_activity(num_classes, N_pad)
+            for trim in variants(N_pad):
+                run(self.dispatch(obs, act, 0, trim=trim))
+        if cache_window_samples is not None:
+            window = self._upload(self._warmup_observation(
+                (num_channels, cache_window_samples), dtype))
+            offsets = np.zeros(num_arrays or 1, np.int32)
+            for N_pad in self._warmup_lengths(
+                    cache_lengths if cache_lengths is not None else lengths):
+                act = self._warmup_activity(num_classes, N_pad)
+                for trim in variants(N_pad):
+                    run(self.dispatch_cached(window, offsets, N_pad, act, 0,
+                                             trim=trim))
+        for handle in handles:
+            self.gather(handle)
+
+    def warmup_mesh(self, mesh, num_channels, num_classes, *, dtype=None,
+                    lengths=None, utterances_per_device=1, parallel=True,
+                    cache_window_samples=None, num_arrays=None,
+                    cache_lengths=None):
+        """The mesh twin of :meth:`warmup`: the batches the mesh session
+        loop dispatches (``parallel/mesh.py``), data x
+        ``utterances_per_device`` rows, one per length bucket, direct and
+        (with ``cache_window_samples``) through the session-audio window,
+        on every device of ``mesh``."""
+        from pb_chime5_tpu_torch.parallel.mesh import (
+            sharded_gss_enhance, sharded_gss_enhance_cached)
+        dtype = np.dtype(dtype if dtype is not None else self.dtype)
+        B = mesh.shape['data'] * utterances_per_device
+        lengths = self._warmup_lengths(lengths)
+        self._load_kernels([d for row in mesh.devices for d in row])
+        targets = np.zeros(B, np.int64)
+        outs = []
+
+        def run(out):
+            if parallel:
+                outs.append(out)
+            else:
+                out.cpu()
+        for N_pad in lengths:
+            run(sharded_gss_enhance(
+                mesh, self._warmup_observation((B, num_channels, N_pad),
+                                               dtype),
+                self._warmup_activity(num_classes, N_pad, (B,)), targets,
+                np.full(B, N_pad), config=self.config,
+                num_output_samples=N_pad))
+        if cache_window_samples is not None:
+            window = self._upload(self._warmup_observation(
+                (num_channels, cache_window_samples), dtype))
+            A = num_arrays or 1
+            for N_pad in self._warmup_lengths(
+                    cache_lengths if cache_lengths is not None else lengths):
+                run(sharded_gss_enhance_cached(
+                    mesh, window, np.zeros((B, A), np.int32),
+                    self._warmup_activity(num_classes, N_pad, (B,)), targets,
+                    np.full(B, N_pad), config=self.config, num_arrays=A,
+                    slice_samples=N_pad, num_output_samples=N_pad))
+        for out in outs:
+            out.cpu()

@@ -11,8 +11,9 @@ points (reference wrapper:108-251), with the unsupervised Lorenz /
 quantile mask front-ends of ``ops/masks.py``.  Shapes: Y (F, D, T), masks
 (F, T), vectors (F, D), output (F, T); the from-masks entry points take
 the wrapper's Y (D, T, F) and masks (D, T, F) / (T, F) and return (T, F).
-The reference channel is picked with ``torch.argmax`` and plain indexing;
-the JAX one-hot reductions were a TPU-runtime workaround.  The
+The reference channel is picked with ``torch.argmax`` and a gather, one
+per utterance of a batch; the JAX one-hot reductions were a TPU-runtime
+workaround.  The
 from-masks GEV and LCMV compute their PSDs and vectors in float64, as the
 chain does (``models/gss.py::_beamform``).
 """
@@ -27,6 +28,8 @@ from pb_chime5_tpu_torch.ops.linalg import (
     dominant_eigenvector, hermitian_solve, hermitize)
 
 __all__ = ['condense_mask', 'psd_matrix', 'mvdr_souden_vector',
+           'mvdr_souden_matrix', 'snr_statistics', 'reference_channel',
+           'select_channel',
            'gev_vector', 'lcmv_vector', 'blind_analytic_normalization',
            'apply_beamforming_vector', 'beamform_mvdr_souden_from_masks',
            'beamform_gev_from_masks', 'beamform_lcmv_from_masks',
@@ -69,32 +72,74 @@ def psd_matrix(Y, mask=None):
     return psd / norm[:, None, None].to(Y.dtype)
 
 
-def _snr_optimal_reference_channel(w_mat, cov_x, cov_n, eps):
+def mvdr_souden_matrix(cov_x, cov_n, *, eps=1e-10):
+    """``Phi_N^{-1} Phi_X / tr(Phi_N^{-1} Phi_X)``: cov_x, cov_n
+    (..., D, D) -> (..., D, D), every matrix of the leading axes in one
+    solve.  A complex64 solve of d <= 32 channels runs on the Gauss-Jordan
+    kernel (``ops/kernels/gj_inverse.py``), others on the plain
+    ``linalg.hermitian_solve``."""
+    D = cov_n.shape[-1]
+    solve = (hermitian_solve_gj if cov_n.dtype == torch.complex64
+             and D <= MAX_D else hermitian_solve)
+    phi = solve(cov_n.reshape(-1, D, D),
+                cov_x.reshape(-1, D, D)).reshape(cov_n.shape)
+    lam = torch.diagonal(phi, dim1=-2, dim2=-1).sum(-1).real[..., None, None]
+    return phi / torch.clamp_min(lam, eps).to(phi.dtype)
+
+
+def snr_statistics(w_mat, cov_x, cov_n):
+    """The SNR-optimal reference channel's statistics (pb_bss
+    ``get_optimal_reference_channel``): numerator and denominator, each
+    summed over frequency and channels.  w_mat, cov_x, cov_n
+    (..., F, D, D) -> (num, den) (..., R), one candidate R a channel."""
+    num = torch.einsum('...fdr,...fde,...fer->...r', w_mat.conj(), cov_x,
+                       w_mat).real
+    den = torch.einsum('...fdr,...fde,...fer->...r', w_mat.conj(), cov_n,
+                       w_mat).real
+    return num, den
+
+
+def reference_channel(num, den, eps):
+    """The channel maximizing ``num / max(den, eps)``: (..., R) -> (...),
+    one per utterance, on the device."""
+    return torch.argmax(num / torch.clamp_min(den, eps), dim=-1)
+
+
+def _snr_optimal_reference_channel(w_mat, cov_x, cov_n, eps,
+                                   snr_reduce=None):
     """Index of the reference channel maximizing the frequency-summed
-    output SNR (pb_bss ``get_optimal_reference_channel``): a 0-d tensor,
-    so the choice stays on the device."""
-    num = torch.einsum('fdr,fde,fer->r', w_mat.conj(), cov_x, w_mat).real
-    den = torch.einsum('fdr,fde,fer->r', w_mat.conj(), cov_n, w_mat).real
-    return torch.argmax(num / torch.clamp_min(den, eps))
+    output SNR: w_mat (..., F, D, R) -> (...) tensor, so the choice stays
+    on the device.  ``snr_reduce`` sums the (..., R) statistics across a
+    sharded frequency axis (``parallel/mesh.py``), so every shard selects
+    the same channel."""
+    num, den = snr_statistics(w_mat, cov_x, cov_n)
+    if snr_reduce is not None:
+        num, den = snr_reduce(num), snr_reduce(den)
+    return reference_channel(num, den, eps)
+
+
+def select_channel(mat, ref_channel):
+    """Column ``ref_channel`` of each matrix: mat (..., F, D, D) and a
+    (...) index tensor -> (..., F, D)."""
+    index = ref_channel[..., None, None, None].expand(*mat.shape[:-1], 1)
+    return torch.gather(mat, -1, index)[..., 0]
 
 
 def mvdr_souden_vector(cov_x, cov_n, *, eps=1e-10, ref_channel=None,
-                       return_ref_channel=False):
+                       return_ref_channel=False, snr_reduce=None):
     """``w = (Phi_N^{-1} Phi_X / tr(Phi_N^{-1} Phi_X)) e_ref``: the given
     ``ref_channel`` (an int in [-D, D), or a tensor index, clamped to that
-    range), else the SNR-optimal global reference channel.
-    cov_x, cov_n (F, D, D) -> w (F, D) (and the channel, a 0-d tensor,
-    when ``return_ref_channel``).  A complex64 solve of d <= 32 channels
-    runs on the Gauss-Jordan kernel (``ops/kernels/gj_inverse.py``),
-    others on the plain ``linalg.hermitian_solve``."""
-    solve = (hermitian_solve_gj if cov_n.dtype == torch.complex64
-             and cov_n.shape[-1] <= MAX_D else hermitian_solve)
-    phi = solve(cov_n, cov_x)
-    lam = torch.diagonal(phi, dim1=-2, dim2=-1).sum(-1).real[..., None, None]
-    mat = phi / torch.clamp_min(lam, eps).to(phi.dtype)
+    range), else the SNR-optimal reference channel, one per utterance
+    (``snr_reduce``: see :func:`_snr_optimal_reference_channel`).
+    cov_x, cov_n (F, D, D) -> w (F, D), or for a batch (B, F, D, D) ->
+    (B, F, D) (and the channel, a (B,) or 0-d tensor, when
+    ``return_ref_channel``); see :func:`mvdr_souden_matrix` for the
+    solve."""
+    mat = mvdr_souden_matrix(cov_x, cov_n, eps=eps)
     D = mat.shape[-1]
     if ref_channel is None:
-        ref_channel = _snr_optimal_reference_channel(mat, cov_x, cov_n, eps)
+        ref_channel = _snr_optimal_reference_channel(
+            mat, cov_x, cov_n, eps, snr_reduce=snr_reduce)
     elif isinstance(ref_channel, int):
         if not -D <= ref_channel < D:
             raise ValueError(
@@ -103,7 +148,7 @@ def mvdr_souden_vector(cov_x, cov_n, *, eps=1e-10, ref_channel=None,
     else:
         ref_channel = torch.clamp(torch.as_tensor(
             ref_channel, device=mat.device), -D, D - 1) % D
-    w = mat.index_select(-1, ref_channel.reshape(1))[..., 0]
+    w = select_channel(mat, ref_channel)
     if return_ref_channel:
         return w, ref_channel
     return w

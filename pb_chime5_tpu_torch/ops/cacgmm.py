@@ -112,11 +112,21 @@ class CacgmmConfig:
 
 
 def make_initialization(activity, dtype=torch.float32):
-    """Activity (K, T) -> initial affiliations (K, T) of ``dtype``: zeros
-    floored to 1e-10, columns normalized over classes."""
+    """Activity (..., K, T) -> initial affiliations (..., K, T) of
+    ``dtype``: zeros floored to 1e-10, columns normalized over classes."""
     init = activity.to(dtype)
     init = torch.where(init == 0, torch.full_like(init, _INIT_FLOOR), init)
-    return init / init.sum(dim=0, keepdim=True)
+    return init / init.sum(dim=-2, keepdim=True)
+
+
+def _rows(x, rows):
+    """A batch's per-utterance tensor (B, ...) repeated over the ``rows``
+    rows (B utterances of rows / B frequencies) it applies to; an
+    unbatched one (no leading B) as is, broadcast over all rows.  None
+    stays None."""
+    if x is None or x.shape[0] == rows or x.dim() < 3:
+        return x
+    return x.repeat_interleave(rows // x.shape[0], dim=0)
 
 
 def _normalize_observations(y):
@@ -261,22 +271,26 @@ def _cacgmm_posteriors_fused(Y, initialization, source_activity_mask,
     """Counterpart of the JAX ``_cacgmm_posteriors_pallas``.
 
     Y (F, T, D) complex64; initialization (K, T) float32; mask (K, T)
-    bool; frame_mask (T,) bool or None -> posteriors (F, K, T)."""
+    bool; frame_mask (T,) bool or None -> posteriors (F, K, T).  A batch
+    of B utterances: Y's F rows are their F / B frequencies each, and
+    initialization, mask (B, K, T) and frame_mask (B, T) each
+    utterance's: every kernel launch takes the whole batch."""
     z = _normalize_observations(Y).contiguous()
     F, T, D = z.shape
-    K = initialization.shape[0]
+    K = initialization.shape[-2]
+    lead = initialization.shape[:-2]           # (B,) for a batch, else ()
     tiny = torch.finfo(torch.float32).tiny
     device = z.device
-    fm = (torch.ones(T, device=device) if frame_mask is None
+    fm = (torch.ones(lead + (T,), device=device) if frame_mask is None
           else frame_mask.to(torch.float32)).contiguous()
     act_m = source_activity_mask.to(torch.float32).contiguous()
-    act_1 = torch.ones((K, T), device=device)
+    act_1 = torch.ones(lead + (K, T), device=device)
 
     # First M-step through the same kernel: identity precisions and zero
     # log-weights / logdets make its E-step the identity on the
     # (column-normalized) initialization, so gamma == init.
     init = initialization / torch.clamp_min(
-        initialization.sum(dim=0, keepdim=True), tiny)
+        initialization.sum(dim=-2, keepdim=True), tiny)
     eye = torch.eye(D, dtype=z.dtype, device=device).expand(
         F, K, D, D).contiguous()
     zeros = torch.zeros((F, K), device=device)
@@ -286,7 +300,7 @@ def _cacgmm_posteriors_fused(Y, initialization, source_activity_mask,
     for _ in range(config.iterations - 1):
         params = _finalize(*fused_em_scatter(z, params, act_m, fm), config)
     if config.iterations_post == 0:
-        return _e_step(z, params, source_activity_mask)[0]
+        return _e_step(z, params, _rows(source_activity_mask, F))[0]
     for _ in range(config.iterations_post - 1):
         params = _finalize(*fused_em_scatter(z, params, act_1, fm), config)
     return _e_step(z, params, None)[0]
@@ -300,7 +314,7 @@ def _posterior(z, params, source_activity_mask, chunk=None):
     return torch.cat([
         _e_step(z[:, t:t + chunk], params,
                 None if source_activity_mask is None
-                else source_activity_mask[:, t:t + chunk])[0]
+                else source_activity_mask[..., t:t + chunk])[0]
         for t in range(0, z.shape[1], chunk)], dim=-1)
 
 
@@ -319,9 +333,9 @@ def _chunked_em_iteration(z, params, source_activity_mask, frame_mask,
         chunk = slice(start, start + config.em_chunk_size)
         zc = z[:, chunk]
         gamma, q = _e_step(zc, params, None if source_activity_mask is None
-                           else source_activity_mask[:, chunk])
+                           else source_activity_mask[..., chunk])
         if frame_mask is not None:
-            gamma = gamma * frame_mask[chunk].to(rdtype)
+            gamma = gamma * frame_mask[..., chunk].to(rdtype)
         denom = denom + gamma.sum(dim=-1)
         # q can sit at its tiny clamp on zero frames: pinned to 0 there
         coeff = torch.where(gamma > 0, gamma / q, torch.zeros_like(gamma))
@@ -334,7 +348,9 @@ def _cacgmm_posteriors_xla(Y, initialization, source_activity_mask,
     """The JAX ``_cacgmm_single_frequency`` batched over F.  Y (F, T, D)
     complex64 or complex128, initialization (K, T) of Y's real dtype ->
     posteriors (F, K, T).  ``on_m_step(params, gamma)`` is called after
-    each M-step with the responsibilities it consumed (unfused only)."""
+    each M-step with the responsibilities it consumed (unfused only).  A
+    batch gives initialization and mask per row (F, K, T) and frame_mask
+    (F, 1, T)."""
     z = _normalize_observations(Y)
     gamma = initialization.expand(z.shape[0], -1, -1)
     # the first M-step consumes the (floored, unmasked) initialization:
@@ -379,13 +395,28 @@ def cacgmm_posteriors(Y, activity, *, config: CacgmmConfig = CacgmmConfig(),
     Y (F, T, D) complex64 or complex128; activity (K, T) bool/int/float
     per-class frame activity (initialization and source-activity mask);
     frame_mask (T,) bool or None -> (F, K, T) class posteriors of Y's real
-    dtype.
+    dtype.  A batch of B utterances: Y (B, F, T, D), activity (B, K, T),
+    frame_mask (B, T) -> (B, F, K, T), every utterance's frequencies in
+    each launch; B = 1 gives the unbatched numbers bit for bit.
     """
     backend = _resolve_backend(config, Y.dtype)
     initialization = make_initialization(activity, dtype=Y.real.dtype)
-    driver = (_cacgmm_posteriors_fused if backend == 'pallas'
-              else _cacgmm_posteriors_xla)
-    return driver(Y, initialization, activity != 0, frame_mask, config)
+    mask = activity != 0
+    if activity.dim() == 2:
+        driver = (_cacgmm_posteriors_fused if backend == 'pallas'
+                  else _cacgmm_posteriors_xla)
+        return driver(Y, initialization, mask, frame_mask, config)
+    B, F, T, D = Y.shape
+    Y = Y.reshape(B * F, T, D)
+    if backend == 'pallas':
+        posterior = _cacgmm_posteriors_fused(Y, initialization, mask,
+                                             frame_mask, config)
+    else:
+        posterior = _cacgmm_posteriors_xla(
+            Y, _rows(initialization, B * F), _rows(mask, B * F),
+            None if frame_mask is None
+            else _rows(frame_mask[:, None, :], B * F), config)
+    return posterior.reshape(B, F, *posterior.shape[1:])
 
 
 def _m_step_stats(params, D):

@@ -11,6 +11,10 @@ concurrent nvcc processes.  A failed build raises; there is no fallback.
 Each library's C entry launches on the stream it is given and returns
 the ``cudaError_t`` of the launch; :func:`kernel_entry` and
 :func:`check_launch` are that convention on the Python side.
+
+``stats`` counts the nvcc builds started and the libraries loaded in this
+process: after ``GssPipeline.warmup`` a session's dispatches add to
+neither (the port's reading of the JAX package's "no new compiles").
 """
 
 import ctypes
@@ -26,7 +30,8 @@ from pathlib import Path
 import torch
 
 __all__ = ['load_libraries', 'load_library', 'kernel_entry', 'check_launch',
-           'build_log', 'find_nvcc', 'BUILD_DIR', 'CSRC_DIR']
+           'build_log', 'find_nvcc', 'stats', 'LIBRARIES', 'BUILD_DIR',
+           'CSRC_DIR']
 
 CSRC_DIR = Path(__file__).resolve().parents[2] / 'csrc'
 BUILD_DIR = Path(__file__).resolve().parents[3] / 'build' / \
@@ -35,8 +40,12 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / 'build' / \
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 
+# every kernel library of the port
+LIBRARIES = ('fused_em', 'wpe_stats', 'gj_inverse', 'chol_solve')
+
 _lock = threading.Lock()
 _libraries = {}
+stats = {'builds': 0, 'loads': 0}
 
 
 def find_nvcc() -> str:
@@ -82,6 +91,7 @@ def _build(names) -> None:
             out.write(f'{" ".join(cmd)}\n')
             out.flush()
             proc = subprocess.Popen(cmd, stdout=out, stderr=subprocess.STDOUT)
+        stats['builds'] += 1
         builds.append((lib, tmp, log, cmd, proc))
     start = time.perf_counter()
     for lib, tmp, log, cmd, proc in builds:
@@ -101,6 +111,7 @@ def load_libraries(names) -> list:
         _build(missing)
         for name in missing:
             _libraries[name] = ctypes.CDLL(str(_library_path(name)))
+            stats['loads'] += 1
         return [_libraries[name] for name in names]
 
 

@@ -7,7 +7,10 @@ version.
 :func:`fused_em_scatter_reference` for CPU tensors; for any other
 placement, dtype, layout or size it raises.  Nothing falls back: a
 failed build or launch raises.  ``fused_em_scatter.launches`` counts
-kernel launches (never reference calls).
+kernel launches (never reference calls).  A batch of B utterances is
+one launch over their B * F rows, each utterance with its own class gate
+``act`` (B, K, T) and frame mask ``fm`` (B, T): the counterpart of the
+JAX package's ``vmap`` of the Pallas call.
 
 The kernel forms q_kt as this plain version does (the rows of P_k z_t,
 then the conjugate dot), so that it rounds as the plain version rounds,
@@ -36,10 +39,12 @@ CHUNK = 32
 CLUSTER = 2
 
 
-_ARGTYPES = (ctypes.c_void_p,) * 8 + (ctypes.c_int,) * 4 + (ctypes.c_void_p,)
+_ARGTYPES = (ctypes.c_void_p,) * 8 + (ctypes.c_int,) * 5 + (ctypes.c_void_p,)
 
 
 def _check(z, params, act, fm):
+    """(F, T, D, K, B) of a valid call: F rows in all (B utterances of
+    F / B rows each), B = 1 for an unbatched ``act`` (K, T)."""
     log_weight, precision, logdet = params
     if z.dim() != 3:
         raise ValueError(f'z must be (F, T, D), got {tuple(z.shape)}')
@@ -49,13 +54,17 @@ def _check(z, params, act, fm):
         raise ValueError(
             f'fused_em_scatter supports 1 <= D <= {MAX_D} and '
             f'1 <= K <= {MAX_K}; got D={D}, K={K}')
+    batched = act.dim() == 3
+    B = act.shape[0] if batched else 1
+    if F % B:
+        raise ValueError(f'{F} rows do not split into {B} utterances')
     expected = {
         'z': (z, torch.complex64, (F, T, D)),
         'log_weight': (log_weight, torch.float32, (F, K)),
         'precision': (precision, torch.complex64, (F, K, D, D)),
         'logdet': (logdet, torch.float32, (F, K)),
-        'act': (act, torch.float32, (K, T)),
-        'fm': (fm, torch.float32, (T,)),
+        'act': (act, torch.float32, (B, K, T) if batched else (K, T)),
+        'fm': (fm, torch.float32, (B, T) if batched else (T,)),
     }
     for name, (x, dtype, shape) in expected.items():
         if x.dtype != dtype or tuple(x.shape) != shape:
@@ -66,7 +75,7 @@ def _check(z, params, act, fm):
             raise ValueError(f'{name} is on {x.device}, z on {z.device}')
         if not x.is_contiguous():
             raise ValueError(f'{name} must be contiguous')
-    return F, T, D, K
+    return F, T, D, K, B
 
 
 def fused_em_scatter(z, params, act, fm):
@@ -75,23 +84,28 @@ def fused_em_scatter(z, params, act, fm):
     z (F, T, D) complex64 unit-norm observations; params = (log_weight
     (F, K) float32, precision (F, K, D, D) complex64, logdet (F, K)
     float32); act (K, T) float32 class gate; fm (T,) float32 frame mask.
+    Batched: the F rows are B utterances' F / B rows each, act (B, K, T)
+    and fm (B, T) each utterance's; one launch for the batch, and B = 1
+    gives the unbatched call's numbers bit for bit.
     Returns (S (F, K, D, D) complex64 — without the 1/den_k and D
     factors — and den (F, K) float32).
     """
-    F, T, D, K = _check(z, params, act, fm)
+    F, T, D, K, B = _check(z, params, act, fm)
     if z.device.type == 'cpu':
         return fused_em_scatter_reference(z, params, act, fm)
     if z.device.type != 'cuda':
         raise ValueError(f'unsupported device {z.device}')
     log_weight, precision, logdet = params
-    launch = kernel_entry('fused_em', 'pb_fused_em_scatter', _ARGTYPES)
+    launch = kernel_entry('fused_em', 'pb_fused_em_scatter_batched',
+                          _ARGTYPES)
     S = torch.empty((F, K, D, D), dtype=torch.complex64, device=z.device)
     den = torch.empty((F, K), dtype=torch.float32, device=z.device)
     with torch.cuda.device(z.device):
         stream = torch.cuda.current_stream(z.device).cuda_stream
         err = launch(z.data_ptr(), precision.data_ptr(), log_weight.data_ptr(),
                      logdet.data_ptr(), act.data_ptr(), fm.data_ptr(),
-                     S.data_ptr(), den.data_ptr(), F, T, D, K, stream)
+                     S.data_ptr(), den.data_ptr(), F, T, D, K, F // B,
+                     stream)
     check_launch(err, 'fused_em')
     fused_em_scatter.launches += 1
     return S, den
@@ -126,9 +140,13 @@ def quadratic_form(z, precision):
 
 def fused_em_scatter_reference(z, params, act, fm):
     """Plain PyTorch version of :func:`fused_em_scatter` (same formula,
-    batched einsums over (F, K, T, D))."""
+    batched einsums over (F, K, T, D)); act (B, K, T) and fm (B, T) of a
+    batch gate their utterance's rows."""
     log_weight, precision, logdet = params
-    D = z.shape[-1]
+    F, _, D = z.shape
+    if act.dim() == 3:
+        act = act.repeat_interleave(F // act.shape[0], dim=0)
+        fm = fm.repeat_interleave(F // fm.shape[0], dim=0)[:, None, :]
     tiny = torch.finfo(torch.float32).tiny
     q = torch.clamp_min(quadratic_form(z, precision), tiny)
     log_pdf = log_weight[..., None] - D * torch.log(q) - logdet[..., None]

@@ -22,15 +22,18 @@ Iterative offline WPE batched over frequency:
   (the WPE headline, 240) in one launch of the blocked-Cholesky kernel
   (:func:`~pb_chime5_tpu_torch.ops.kernels.chol_solve.hermitian_solve_chol`,
   the JAX default ``method='chol'`` with its relative pivot floor; its
-  plain version on the CPU); for complex128 with ``taps * D > 32`` by
-  :func:`solve_floored`: ``cholesky_ex`` + ``cholesky_solve`` on the
-  equilibrated, loaded system, and the frequencies where a pivot falls
-  below JAX's floor ``eps^2 * max(diag)`` (a failed factorization
+  plain version on the CPU); for complex128 with ``taps * D > 32``, and
+  for complex64 with ``taps * D > 256``, by :func:`solve_floored`:
+  ``cholesky_ex`` + ``cholesky_solve`` on the equilibrated, loaded
+  system, and the frequencies where a pivot falls below JAX's floor
+  ``eps^2 * max(diag)`` of the system's precision (a failed factorization
   included) solved again by K5's plain version (JAX's panels with the
-  floor): never a raise; else
-  :func:`~pb_chime5_tpu_torch.ops.linalg.hermitian_solve` (Gauss-Jordan up
-  to d = 32, cuSOLVER / LAPACK Cholesky above 256),
+  floor): never a raise; else (d <= 32)
+  :func:`~pb_chime5_tpu_torch.ops.linalg.hermitian_solve` (Gauss-Jordan),
 * output ``X = Y - G^H Ytilde``.
+
+The rows are independent: a batch of B utterances runs as B * F rows,
+with its frame mask given per row, (B * F, T).
 
 ``chunk_size`` accumulates R and P over T-chunks of that many frames and
 applies the filter chunk by chunk, so the (F, taps * D, T) stack is never
@@ -95,9 +98,15 @@ def get_power_inverse(X, psd_context: int = 0, frame_mask=None):
     return 1.0 / torch.maximum(power, floor)
 
 
+def _frames(frame_mask):
+    """A frame mask (T,) or per row (F, T) for a (F, d, T) tensor."""
+    return frame_mask if frame_mask.dim() == 1 else frame_mask[:, None, :]
+
+
 def solve_floored(A, B, *, relative_load, refine=0):
     """JAX's ``hermitian_solve(A, B, relative_load=..., method='chol',
-    refine=...)`` for complex128 (F, d, d), (F, d, E): LAPACK / cuSOLVER's
+    refine=...)`` for (F, d, d), (F, d, E) (complex128, or complex64 that
+    K5 does not take), with the floor of A's precision: LAPACK / cuSOLVER's
     Cholesky where every pivot clears JAX's floor ``eps^2 * max(diag)``
     of the loaded, equilibrated matrix, else (for those frequencies only:
     the host reads which) the floored panels of
@@ -131,7 +140,7 @@ def _solve_G(R, P, regularization, refine=0):
         return hermitian_solve_chol(R.contiguous(), P.contiguous(),
                                     relative_load=regularization,
                                     refine=refine)
-    if R.dtype == torch.complex128 and R.shape[-1] > BLOCK:
+    if R.shape[-1] > BLOCK:
         return solve_floored(R, P, relative_load=regularization,
                              refine=refine)
     return hermitian_solve(R, P, relative_load=regularization, refine=refine)
@@ -160,7 +169,7 @@ def _chunked_wpe_iteration(Y, inv_power, taps, delay, regularization,
     Yp = torch.nn.functional.pad(Y, (hist, pad))
     wp = torch.nn.functional.pad(inv_power, (0, pad))
     fmp = (None if frame_mask is None else torch.nn.functional.pad(
-        frame_mask.to(inv_power.dtype), (0, pad)))
+        _frames(frame_mask).to(inv_power.dtype), (0, pad)))
 
     def chunk_tilde(start):
         """(F, taps*D, chunk) stacked delayed block from frame ``start``."""
@@ -168,7 +177,7 @@ def _chunked_wpe_iteration(Y, inv_power, taps, delay, regularization,
                            start + hist - delay - tau + chunk_size]
                         for tau in range(taps)], dim=-2)
         if fmp is not None:
-            yt = yt * fmp[start:start + chunk_size].to(yt.dtype)
+            yt = yt * fmp[..., start:start + chunk_size].to(yt.dtype)
         return yt
 
     dim = taps * D
@@ -193,8 +202,9 @@ def wpe(Y, *, taps: int = 10, delay: int = 2, iterations: int = 3,
         stats_backend: str = 'auto', solve_refine: int = 0):
     """Batched offline WPE.  Y (F, D, T) complex -> dereverberated
     (F, D, T); ``regularization=0`` solves with :func:`stable_solve`
-    (reference-exact in float64); ``frame_mask`` (T,) bool excludes padded
-    frames from the statistics and zeroes them in the output.
+    (reference-exact in float64); ``frame_mask`` (T,) bool, or per row
+    (F, T), excludes padded frames from the statistics and zeroes them in
+    the output.
     ``stats_backend``: 'auto' / 'xla' (complex matmuls) or 'pallas' (the
     statistics kernel; complex64 only; not with ``chunk_size``); 'real'
     is not ported.  ``solve_refine`` iterative-refinement steps on the
@@ -216,12 +226,12 @@ def wpe(Y, *, taps: int = 10, delay: int = 2, iterations: int = 3,
             Y = Y.contiguous()          # the kernel reads (F, D, T) rows
         Y_tilde = build_y_tilde(Y, taps, delay)
         if frame_mask is not None:
-            Y_tilde = Y_tilde * frame_mask.to(Y_tilde.dtype)
+            Y_tilde = Y_tilde * _frames(frame_mask).to(Y_tilde.dtype)
         X = Y
         for _ in range(iterations):
             X = _wpe_iteration(Y, Y_tilde,
                                get_power_inverse(X, psd_context, frame_mask),
                                regularization, stats_backend, solve_refine)
     if frame_mask is not None:
-        X = X * frame_mask.to(X.dtype)
+        X = X * _frames(frame_mask).to(X.dtype)
     return X

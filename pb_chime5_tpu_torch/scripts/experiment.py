@@ -1,7 +1,8 @@
 """Minimal sacred-compatible experiment engine for the port's CLIs —
-``pb_chime5_tpu.scripts.experiment.Experiment`` for one process (the
-JAX version also joins ``jax.distributed``; multi-process runs of the
-port are not in this slice, see ROADMAP.md).
+``pb_chime5_tpu.scripts.experiment.Experiment``.  Before the run dir is
+made, a process launched with torchrun's variables joins the gloo process
+group (``parallel/distributed.py``); the master makes the run dir and
+broadcasts its id to the other processes.
 
 * ``Experiment(name)`` with ``add_config(dict)`` /
   ``add_config_from_signature(fn)`` (every keyword of the factory
@@ -53,10 +54,15 @@ class Experiment:
     def _create_run_dir(self, storage_dir):
         storage_dir = Path(storage_dir)
         storage_dir.mkdir(parents=True, exist_ok=True)
-        run_id = max((int(p.name) for p in storage_dir.iterdir()
-                      if p.name.isdigit()), default=0) + 1
-        run_dir = storage_dir / str(run_id)
-        run_dir.mkdir()
+        while True:        # jobs started together race for the next id
+            run_id = max((int(p.name) for p in storage_dir.iterdir()
+                          if p.name.isdigit()), default=0) + 1
+            run_dir = storage_dir / str(run_id)
+            try:
+                run_dir.mkdir()
+                break
+            except FileExistsError:
+                continue
         dump_json({k: (v if isinstance(v, (int, float, str, bool, list, tuple,
                                            dict, type(None))) else repr(v))
                    for k, v in self.config.items()}, run_dir / 'config.json')
@@ -67,7 +73,8 @@ class Experiment:
         return run_dir
 
     def finalize_run(self, status='COMPLETED'):
-        if self.run_dir is None:
+        from pb_chime5_tpu_torch.parallel.distributed import is_master
+        if self.run_dir is None or not is_master():
             return
         meta = load_json(self.run_dir / 'run.json')
         meta['status'] = status
@@ -98,13 +105,36 @@ class Experiment:
                 self.config[key] = _parse_value(value)
         return command, storage_dir
 
+    @staticmethod
+    def _broadcast_run_id(run_id: int) -> int:
+        """The master's run id on every process (the reference bcasts the
+        sacred run dir over MPI, run.py:98); as given without a process
+        group."""
+        import torch.distributed as dist
+        if not (dist.is_available() and dist.is_initialized()) \
+                or dist.get_world_size() <= 1:
+            return run_id
+        box = [int(run_id)]
+        dist.broadcast_object_list(box, src=0)
+        return int(box[0])
+
     def run_commandline(self, argv=None, create_run_dir=True):
+        from pb_chime5_tpu_torch.parallel.distributed import (
+            is_master, maybe_initialize)
+        maybe_initialize()        # join torchrun's group before the run dir
         command, storage_dir = self.parse_argv(argv)
         if command not in self._commands:
             raise SystemExit(f'Unknown command {command!r}; available: '
                              f'{sorted(self._commands)}')
         if create_run_dir:
-            self.run_dir = self._create_run_dir(storage_dir)
+            # the master allocates the run dir; the other processes join it
+            master = is_master()
+            if master:
+                self.run_dir = self._create_run_dir(storage_dir)
+            run_id = self._broadcast_run_id(
+                int(self.run_dir.name) if master else -1)
+            if not master:
+                self.run_dir = Path(storage_dir) / str(run_id)
             print(f'Experiment dir: {self.run_dir}')
         print('Configuration:')
         for key in sorted(self.config):

@@ -14,8 +14,19 @@
 * ``test_run`` enhances only the first 2 utterances,
 * outputs land in ``<storage>/<run_id>/audio/<dataset>/<id>.wav``.
 
-Single process, single device for now: the mesh and warmup of the JAX CLI
-are not ported yet (ROADMAP.md, Queue 1).
+Multi-process: launch with torchrun's variables (``MASTER_ADDR``,
+``MASTER_PORT``, ``WORLD_SIZE``, ``RANK``): the processes join a gloo
+group, share the master's run dir, and the default length-balanced shard
+splits the utterances by rank; or launch many jobs with ``PB_JOB_ID`` /
+``PB_NUM_JOBS`` (Kaldi-style, 1-based job ids), each enhancing its
+length-balanced share.
+
+Several devices in one process: ``with mesh=auto`` batches same-bucket
+utterances over every local CUDA device (``mesh=4`` the first 4; with
+``device=cpu``, ``mesh=N`` makes N CPU slots); ``mesh_freq=2`` adds
+frequency sharding inside each utterance, ``utterances_per_device=2``
+stacks more rows per data group.  ``warmup=True`` readies the card for
+the first session's shapes first (``Enhancer.warmup``).
 """
 
 import functools
@@ -26,6 +37,7 @@ import numpy as np
 from pb_chime5_tpu_torch import mapping
 from pb_chime5_tpu_torch.models import enhancer_chime6
 from pb_chime5_tpu_torch.models.enhancer import get_enhancer
+from pb_chime5_tpu_torch.parallel.distributed import is_master
 from pb_chime5_tpu_torch.scripts.experiment import Experiment
 
 
@@ -70,11 +82,45 @@ def make_enhancer(cfg, chime6, chime5_factory=get_enhancer):
                       if k in accepted})
 
 
+def make_mesh_of(mesh, mesh_freq, device):
+    """The CLI's ``mesh`` key as a ``parallel.mesh.Mesh`` (None: no mesh):
+    'auto' / True every local CUDA device, an int N the first N, or N CPU
+    slots with ``device='cpu'``."""
+    if mesh in (None, False, 'None'):
+        return None
+    import torch
+
+    from pb_chime5_tpu_torch.parallel.mesh import make_mesh
+    if torch.device(device).type == 'cpu':
+        if mesh in (True, 'auto'):
+            raise ValueError("mesh=auto takes the CUDA devices; with "
+                             "device=cpu give the number of CPU slots, "
+                             "mesh=N")
+        local = [torch.device('cpu')] * int(mesh)
+    else:
+        if not torch.cuda.is_available():
+            raise RuntimeError('mesh: no CUDA device (device=cpu makes CPU '
+                               'slots)')
+        local = [torch.device('cuda', i)
+                 for i in range(torch.cuda.device_count())]
+        if mesh not in (True, 'auto'):
+            local = local[:int(mesh)]
+    n = len(local)
+    if n % mesh_freq:
+        raise ValueError(f'{n} devices do not split into mesh_freq='
+                         f'{mesh_freq}')
+    print(f'Mesh: {n} local devices (data={n // mesh_freq}, '
+          f'freq={mesh_freq})')
+    return make_mesh(data=n // mesh_freq, freq=mesh_freq, devices=local)
+
+
 def make_experiment(get_enhancer_fn=get_enhancer, default_storage='runs'):
     experiment = Experiment('Chime5 Array Enhancement',
                             default_storage_dir=default_storage)
     experiment.add_config_from_signature(get_enhancer_fn)
-    experiment.add_config({'session_id': 'dev', 'chime6': False})
+    experiment.add_config({'session_id': 'dev', 'chime6': False,
+                           'mesh': None, 'mesh_freq': 1,
+                           'utterances_per_device': 1, 'warmup': False})
     experiment.named_config('multiarray', {
         'bf_drop_context': True,
         'multiarray': True,
@@ -84,15 +130,26 @@ def make_experiment(get_enhancer_fn=get_enhancer, default_storage='runs'):
         cfg = dict(exp.config)
         chime6 = cfg.pop('chime6')
         session_id = cfg.pop('session_id')
+        mesh_cfg = cfg.pop('mesh')
+        mesh_freq = int(cfg.pop('mesh_freq') or 1)
+        utterances_per_device = int(cfg.pop('utterances_per_device'))
+        warmup = bool(cfg.pop('warmup'))
         enhancer = make_enhancer(cfg, chime6, get_enhancer_fn)
+        mesh = make_mesh_of(mesh_cfg, mesh_freq, enhancer.device)
         session_ids = get_session_ids(session_id)
         print('Enhancer:', type(enhancer).__name__)
         print('Sessions:', session_ids)
+        if warmup:
+            enhancer.warmup(session_ids[0], mesh=mesh,
+                            utterances_per_device=utterances_per_device)
         enhancer.enhance_session(
             session_ids,
             exp.run_dir / 'audio',
             dataset_slice=test_run,
             audio_dir_exist_ok=True,
+            is_master=is_master(),
+            mesh=mesh,
+            utterances_per_device=utterances_per_device,
         )
         print('Finished experiment dir:', exp.run_dir)
 

@@ -6,8 +6,9 @@ session audio); the session-audio cache against the direct path inside
 the port (byte-identical WAVs) and the time-ordered dispatch against the
 JAX enhancer's order; plus a subprocess check that a port run
 (``gss_enhance``, and the CLIs ``run``, ``kaldi_run chime6=True`` and
-``kaldi_run_rttm`` on a corpus the port makes) imports neither JAX nor the
-JAX package.
+``kaldi_run_rttm`` on a corpus the port makes, ``run`` with ``mesh=2``,
+under ``PB_JOB_ID`` and in a gloo process group) imports neither JAX nor
+the JAX package.
 
 Tolerance: the WAVs (peak-normalized int16 by ``dump_audio``) agree to
 2e-2 of full scale.  Both chains run the same float32 math in another
@@ -175,8 +176,10 @@ def test_factory_keywords_match_jax():
     for name in ('compute_dtype', 'device_audio_cache',
                  'cache_window_seconds', 'cache_prefetch'):
         assert port[name].default == jax_[name].default, name
-    assert set(make_experiment().config) == set(port) | {'session_id',
-                                                         'chime6'}
+    from pb_chime5_tpu.scripts.run import make_experiment as jax_experiment
+    assert set(make_experiment().config) == set(port) | {
+        'session_id', 'chime6', 'mesh', 'mesh_freq', 'utterances_per_device',
+        'warmup'} == set(jax_experiment().config) | {'device'}
 
 
 def test_factory_accepts_the_jax_keywords_at_their_defaults(corpus):
@@ -270,6 +273,32 @@ def test_port_run_imports_no_jax():
         for out in ('kaldi', 'rttm'):
             assert len(list((root / out / 'audio' / 'dev').glob('*.wav'))) \
                 == 2, out
+
+        import os
+        from pb_chime5_tpu_torch.parallel import distributed
+        small = ['device=cpu', f'database_path={root}/db.json',
+                 'context_samples=4000', 'bss_iterations=2', 'wpe=False',
+                 'length_buckets=(48000,)']
+        exp = make_experiment(default_storage=root / 'mesh')
+        exp.run_commandline(['main', 'with', 'session_id=S02', 'mesh=2',
+                             'warmup=True', *small])
+        assert len(list((exp.run_dir / 'audio' / 'dev').glob('*.wav'))) == 4
+        os.environ.update(PB_JOB_ID='2', PB_NUM_JOBS='2')
+        exp = make_experiment(default_storage=root / 'jobs')
+        exp.run_commandline(['main', 'with', 'session_id=S02', *small])
+        assert len(list((exp.run_dir / 'audio' / 'dev').glob('*.wav'))) == 2
+        del os.environ['PB_JOB_ID'], os.environ['PB_NUM_JOBS']
+        import socket
+        with socket.socket() as s:
+            s.bind(('localhost', 0))
+            port = s.getsockname()[1]
+        os.environ.update(MASTER_ADDR='localhost', MASTER_PORT=str(port),
+                          WORLD_SIZE='1', RANK='0')
+        distributed.initialize()           # a gloo group of one
+        exp = make_experiment(default_storage=root / 'gloo')
+        exp.run_commandline(['test_run', 'with', 'session_id=S02', *small])
+        assert distributed.is_master()
+        assert len(list((exp.run_dir / 'audio' / 'dev').glob('*.wav'))) == 2
         loaded = sorted({m.split('.')[0] for m in sys.modules})
         assert 'jax' not in loaded and 'pb_chime5_tpu' not in loaded, loaded
         print('NO_JAX_OK')

@@ -218,3 +218,58 @@ def test_kernel_rejects_sizes_out_of_range(cuda, D, K):
     with pytest.raises(ValueError):
         fused_em.fused_em_scatter(*inputs)
     assert fused_em.fused_em_scatter.launches == before
+
+
+def batched_inputs(F, T, D, K, B, *, seed=0, identity=False,
+                   device='cpu'):
+    """B utterances of :func:`random_inputs` (seeds ``seed`` .. seed + B
+    - 1) as one batch: z and params (B * F, ...), act (B, K, T) and fm
+    (B, T), each utterance's frame mask with another padded tail and a
+    masked interior frame, so that a row reading another utterance's gate
+    or mask shows."""
+    rows = [random_inputs(F, T, D, K, seed=seed + b, identity=identity,
+                          device=device) for b in range(B)]
+    for b, (_, _, _, fm) in enumerate(rows):
+        fm[T - T // (b + 2):] = 0
+        fm[(3 * b) % T] = 0
+    z = torch.cat([r[0] for r in rows]).contiguous()
+    params = tuple(torch.cat([r[1][i] for r in rows]).contiguous()
+                   for i in range(3))
+    act = torch.stack([r[2] for r in rows]).contiguous()
+    fm = torch.stack([r[3] for r in rows]).contiguous()
+    return z, params, act, fm
+
+
+@pytest.mark.parametrize('B', [1, 3])
+@pytest.mark.parametrize('shape', [(7, 100, 4, 3), (16, 333, 24, 5),
+                                   (513, 2504, 24, 5)],
+                         ids=lambda s: 'F{}-T{}-D{}-K{}'.format(*s))
+def test_batched_kernel_matches_reference(cuda, B, shape):
+    """The batched entry (each utterance's rows with its own gate and
+    mask, one launch) against its plain version, at the gates above."""
+    for identity in (False, True):
+        check_against_reference(*batched_inputs(*shape, B, seed=21,
+                                                identity=identity,
+                                                device=cuda))
+
+
+def test_batched_kernel_of_one_is_the_unbatched_kernel(cuda):
+    """B = 1 (act (1, K, T), fm (1, T)) gives the unbatched entry's S and
+    den bit for bit; and each utterance of a batch of 3 its own unbatched
+    launch's."""
+    z, params, act, fm = random_inputs(64, 1000, 24, 5, seed=22,
+                                       device=cuda)
+    S1, den1 = fused_em.fused_em_scatter(z, params, act, fm)
+    S2, den2 = fused_em.fused_em_scatter(z, params, act[None].contiguous(),
+                                         fm[None].contiguous())
+    assert torch.equal(S1, S2) and torch.equal(den1, den2)
+    F = 16
+    z, params, act, fm = batched_inputs(F, 333, 24, 5, 3, seed=23,
+                                        device=cuda)
+    S, den = fused_em.fused_em_scatter(z, params, act, fm)
+    for b in range(3):
+        rows = slice(b * F, (b + 1) * F)
+        Sb, denb = fused_em.fused_em_scatter(
+            z[rows].contiguous(),
+            tuple(p[rows].contiguous() for p in params), act[b], fm[b])
+        assert torch.equal(S[rows], Sb) and torch.equal(den[rows], denb)

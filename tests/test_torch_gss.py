@@ -68,10 +68,14 @@ def test_config_carries_over_from_jax(jax_config):
 ])
 def test_config_rejects_unported_choices(field, value):
     """Every choice raises but ``bss_em_backend='xla'``, the per-frequency
-    EM, which the port runs: that case asserts the config is accepted."""
+    EM, and ``compile_mode='fast_start'``, the one eager chain, which the
+    port runs: those cases assert the config is accepted."""
     if (field, value) == ('bss_em_backend', 'xla'):
         cfg = GssConfig(**{field: value})
         assert cfg.cacgmm_config.em_backend == 'xla'
+        return
+    if (field, value) == ('compile_mode', 'fast_start'):
+        assert GssConfig(**{field: value}).compile_mode == 'fast_start'
         return
     with pytest.raises(NotImplementedError):
         GssConfig(**{field: value})
