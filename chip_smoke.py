@@ -170,7 +170,37 @@ Phases (the first failure ends the run with a non-zero exit code):
    ``length_balanced_shard`` share, the master's run id on both ranks);
    a fresh process's first utterance with and without
    ``Enhancer.warmup`` (no build and no library load after it); P06 with
-   ``compile_mode='fast_start'`` bit-equal to the fused chain.
+   ``compile_mode='fast_start'`` bit-equal to the fused chain;
+13. the alignment-refined activity, the session soak, the dry run and the
+   tooling: (a) a fake Kaldi alignment of phase 8's worn utterances (sil
+   over the first and last 10 % of each one's 10 ms frames) through
+   ``activity_alignment.main`` on a stub ``KALDI_ROOT``
+   (``testing/fake_kaldi.py``), then phase 8's first 20 utterances (a
+   depth cut) through ``enhance_session`` at the default config with
+   ``activity_type='path'`` on the annotation pickles, on the refined
+   pickles, and ``'annotation'`` (gated: 20 / 20 / 1 / 3 launches an
+   utterance, the annotation pickles' WAVs byte-identical to
+   ``'annotation'``'s, every refined WAV finite, non-silent and other
+   than its annotation twin, one refined utterance card vs CPU at a
+   2-iteration EM and one WPE iteration within 1e-2 of the peak;
+   printed: walls, utterances a
+   second, xRT, the pickles' sizes and load and write times); (b)
+   ``testing/soak.py``'s ``run_session_soak`` at its defaults (1 array x
+   4 mics, no WPE, a 2 + 1 EM, a 45 s window), serial over 1,000
+   utterances and on ``make_mesh(1, 1)`` over 400, with
+   tests/test_session_soak.py's gates (windowed flatness, RSS growth after
+   the first window, the cache's refills and hits, every WAV written),
+   K1 2, ``em_finalize`` 2 and the MVDR inverse 1 an utterance, and the
+   card's allocated memory after the first window grown by at most two
+   of the cache's windows (printed: the windowed means, the RSS and
+   device-memory curves); (c) ``dryrun.dryrun_multichip`` over 4 and 8
+   slots of cuda:0 (its cached leg bit-equal to its direct leg; the
+   launches of its legs, data groups and frequency shards); (d) phase
+   8's first 2 utterances under ``utils.profiling.trace`` (the trace file
+   must name K1's kernel 20 times an utterance), and the FLOP model's
+   achieved TFLOP/s and MFU against 67 TFLOP/s over P06's stage windows
+   (whole chain, WPE, EM) and over phase 8's cached median wall and stage
+   windows (printed, not gated).
 
 Before each path's run every kernel's launch count is set to 0, and it is
 read right after.  It imports the port (``pb_chime5_tpu_torch``) and the
@@ -181,7 +211,8 @@ The last three lines of standard output are the card's name and power
 limit, the kernels' JSON record and ``{"ok": true, "device": {...}}``.
 The record has one row per TPU kernel, with its launches on each path
 (``launches_per_path``: default, all-Pallas, CHiME-6 tracks 1 and 2, the
-'xla' EM, float64, the mesh);
+'xla' EM, float64, the mesh, the alignment-refined activity, the serial
+soak, the dry runs);
 K3's and K4's rows list the
 Gauss-Jordan kernel's other entries under ``entries``; K5's row is its
 entry at the WPE solve (``hermitian_solve_chol``), with the TPU kernel's
@@ -1364,24 +1395,34 @@ def make_session_corpus(root):
     return root / 'chime5.json'
 
 
+def array_reads(enhancer, examples):
+    """Per example, [(files, samples)] of the direct path's reads: each
+    array read up to its files' end."""
+    from pb_chime5_tpu_torch.io import audio_length
+    lengths, out = {}, []
+    for ex in examples:
+        reads = []
+        for paths, s, e, _sel in enhancer._cache_spans(
+                ex, ex['reference_array']):
+            key = tuple(paths)
+            if key not in lengths:
+                lengths[key] = min(audio_length(p) for p in paths)
+            reads.append((paths, max(min(e, lengths[key]) - s, 0)))
+        out.append(reads)
+    return out
+
+
 def observation_bytes(enhancer, examples):
     """(bytes read, bytes uploaded, valid seconds) of the direct path's
     observations: each array read up to its files' end, the min over the
     arrays zero-padded to its length bucket and uploaded."""
-    from pb_chime5_tpu_torch.io import audio_length
-    lengths, read, upload, valid = {}, 0, 0, 0
-    for ex in examples:
-        spans = enhancer._cache_spans(ex, ex['reference_array'])
-        ns = []
-        for paths, s, e, _sel in spans:
-            key = tuple(paths)
-            if key not in lengths:
-                lengths[key] = min(audio_length(p) for p in paths)
-            ns.append(max(min(e, lengths[key]) - s, 0))
-            read += len(paths) * ns[-1] * 2
-        channels = sum(len(paths) for paths, *_ in spans)
-        upload += channels * enhancer._pipeline.bucket_length(min(ns)) * 2
-        valid += min(ns)
+    read, upload, valid = 0, 0, 0
+    for reads in array_reads(enhancer, examples):
+        n = min(ns for _, ns in reads)
+        read += sum(len(paths) * ns * 2 for paths, ns in reads)
+        channels = sum(len(paths) for paths, _ in reads)
+        upload += channels * enhancer._pipeline.bucket_length(n) * 2
+        valid += n
     return read, upload, valid / 16000
 
 
@@ -1486,7 +1527,8 @@ def session_path(torch, counts, work):
     """Phase 8: the session path as users run it (``enhance_session`` at
     the default config, 6 arrays x 4 mics) on bench.py's 420 s session,
     with the session-audio cache on and off in turns; returns (DB JSON,
-    utterances, emitted and processed seconds)."""
+    utterances, emitted and processed seconds, the cached passes' median
+    wall and stage windows)."""
     from pb_chime5_tpu_torch.models.enhancer import get_enhancer
     start = time.perf_counter()
     db = make_session_corpus(work / 'session')
@@ -1547,7 +1589,10 @@ def session_path(torch, counts, work):
     refill_anatomy(torch, enhancers['on']._audio_cache,
                    enhancers['on']._cache_spans(ex, ex['reference_array']))
     check(not imported_jax(), 'the run imported jax or the JAX package')
-    return db, n, emitted_s, valid_s
+    on = [p for p in passes if p['mode'] == 'on']
+    return db, n, emitted_s, valid_s, dict(
+        wall_s=statistics.median(p['wall_s'] for p in on),
+        chain_s=statistics.median(p['chain_s'] for p in on))
 
 
 def quality_path(torch):
@@ -2289,7 +2334,7 @@ def xla_float64_paths(torch, counts, chol_solve, db, examples, session,
     torch.cuda.empty_cache()
     f64_launches = float64_enhancer(torch, counts, db, examples, enhancer)
     torch.cuda.empty_cache()
-    float64_session(torch, counts, *session, work)
+    float64_session(torch, counts, *session[:4], work)
     torch.cuda.empty_cache()
     float64_quality(torch, scenes, float32_medians)
     debug_on_p06(torch, counts, enhancer, xla, examples)
@@ -2836,6 +2881,315 @@ def parallel_paths(torch, counts, fused_em, session, work, examples):
     return mesh_launches, k1
 
 
+# phase 13: the alignment-refined activity, the session soak, the dry run
+# and the tooling.  The refined path's depth is cut to phase 8's first 20
+# utterances (of 100) to keep the phase near 100 s; the width (6 x 4
+# channels, the default config) is not
+REFINED_UTTERANCES = 20
+# the refined utterance's card-vs-CPU run at one WPE iteration (and phase
+# 10's 2-iteration EM): at three, its CPU leg took 71 s of the phase
+CARD_VS_CPU_WPE = 1
+SOAK_UTTERANCES = {'serial': 1000, 'mesh (1, 1)': 400}
+SOAK_WINDOW = 100             # utterances a window of the flatness gate
+DRYRUN_SLOTS = (4, 8)
+TRACE_UTTERANCES = 2
+
+
+def expected_soak_launches(launches, n, bss_iterations=2):
+    """The soak's launches for ``n`` utterances (``wpe=False``, a
+    ``bss_iterations`` + 1 EM): K1 and ``em_finalize`` each EM pass, the
+    MVDR inverse once, no WPE solve."""
+    return {**dict.fromkeys(launches, 0),
+            'fused_em_scatter': bss_iterations * n,
+            'em_finalize': bss_iterations * n,
+            'gauss_jordan_inverse_and_logdet': n}
+
+
+def pickle_times(path):
+    """(MB, load s, write s) of one activity pickle."""
+    import pickle
+    start = time.perf_counter()
+    with open(path, 'rb') as fd:
+        data = pickle.load(fd)
+    load_s = time.perf_counter() - start
+    start = time.perf_counter()
+    with open(path.with_suffix('.again'), 'wb') as fd:
+        pickle.dump(data, fd)
+    return path.stat().st_size / 1e6, load_s, time.perf_counter() - start
+
+
+def refined_activity(torch, counts, session, work):
+    """Phase 13a: a fake Kaldi alignment of phase 8's worn utterances
+    through the port's ``activity_alignment.main`` (a stub ``KALDI_ROOT``
+    of ``testing/fake_kaldi.py``), then ``enhance_session`` over the first
+    REFINED_UTTERANCES utterances with ``activity_type='path'`` on the
+    annotation pickles, on the refined ones, and with
+    ``activity_type='annotation'``; returns the refined pass's launches."""
+    import functools
+    import os
+    import numpy as np
+    from pb_chime5_tpu_torch import activity_alignment
+    from pb_chime5_tpu_torch.database.chime5 import Chime5
+    from pb_chime5_tpu_torch.io import load_audio
+    from pb_chime5_tpu_torch.models.enhancer import get_enhancer
+    from pb_chime5_tpu_torch.testing.fake_kaldi import (
+        make_fake_kaldi_root, write_fake_alignment)
+    db, n_session = session[0], session[1]
+    raw = list(Chime5(db).get_datasets('S02'))
+    phones = write_fake_alignment(work / 'ali', raw)
+    before = os.environ.get('KALDI_ROOT')
+    os.environ['KALDI_ROOT'] = str(make_fake_kaldi_root(work / 'kaldi'))
+    try:
+        start = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            activity_alignment.main(db, work / 'activity', sessions=['S02'],
+                                    worn_ali_path=work / 'ali')
+        cli_s = time.perf_counter() - start
+    finally:
+        if before is None:
+            del os.environ['KALDI_ROOT']
+        else:
+            os.environ['KALDI_ROOT'] = before
+    kinds = ('annotation', 'word_non_sil_alignment')
+    sizes = {kind: pickle_times(work / 'activity' / kind / 'S02.pkl')
+             for kind in kinds}
+    print('activity_alignment.main', json.dumps({
+        'utterances': len(raw), 'aligned': len(phones), 'wall_s': cli_s,
+        **{f'{kind}_pickle': dict(zip(('mb', 'load_s', 'write_s'), v))
+           for kind, v in sizes.items()}}), flush=True)
+
+    n = REFINED_UTTERANCES
+    kw = dict(multiarray=True, database_path=str(db), device='cuda')
+    factories = {
+        'path, annotation pickles': functools.partial(
+            get_enhancer, activity_type='path',
+            activity_path=str(work / 'activity' / kinds[0]), **kw),
+        'path, refined pickles': functools.partial(
+            get_enhancer, activity_type='path',
+            activity_path=str(work / 'activity' / kinds[1]), **kw),
+        'annotation': functools.partial(get_enhancer, **kw)}
+    examples = list(factories['annotation']().get_iterator('S02'))[:n]
+    emitted_s = sum(ex['num_samples_orig']['observation'][
+        ex['reference_array']] for ex in examples) / 16000
+    valid_s = observation_bytes(factories['annotation'](
+        device_audio_cache=False), examples)[2]
+    out = work / 'refined'
+    for label, factory in factories.items():
+        p = session_pass(torch, counts, factory(), n, out / label,
+                         dataset_slice=n)
+        if label == 'path, refined pickles':
+            launches = counts.read()
+        print('refined activity pass', json.dumps({
+            'activity': label, 'utterances': n, 'wall_s': p['wall_s'],
+            'utterances_per_s': n / p['wall_s'],
+            'xrt_emitted': emitted_s / p['wall_s'],
+            'xrt_processed': valid_s / p['wall_s'],
+            'outside_chains': p['outside_chains'], 'peak_gib': p['peak_gib'],
+            'stats': p['stats']}), flush=True)
+    identical = same_wavs(out / 'annotation', out / 'path, annotation pickles')
+    names = sorted(w.name for w in (out / 'annotation' / 'dev').glob('*.wav'))
+    deviation, changed = 0.0, 0
+    for name in names:
+        x = load_audio(out / 'path, refined pickles' / 'dev' / name)
+        y = load_audio(out / 'annotation' / 'dev' / name)
+        check(x.shape == y.shape and np.isfinite(x).all()
+              and np.abs(x).max() > 0,
+              f'refined {name}: not finite and non-silent, or not of the '
+              f"annotation WAV's length")
+        changed += not np.array_equal(x, y)
+        deviation = max(deviation,
+                        float(np.abs(x - y).max() / np.abs(y).max()))
+    print(f"refined activity: annotation pickles byte-identical to "
+          f"'annotation': {identical}; refined WAVs other than the "
+          f'annotation ones: {changed} of {len(names)}, largest deviation '
+          f'{deviation:.3e} of the peak; {n_session} utterances in the '
+          f'session', flush=True)
+    check(identical, "activity_type='path' on the annotation pickles wrote "
+                     "other WAVs than activity_type='annotation'")
+    check(changed == len(names) == n,
+          f'{n - changed} refined WAVs equal the annotation ones')
+    first = examples[0]['example_id']
+    card_vs_cpu_utterance(
+        torch, functools.partial(factories['path, refined pickles'],
+                                 wpe_iterations=CARD_VS_CPU_WPE),
+        lambda e: e.get_iterator('S02')[first],
+        f'refined utterance {first}, {CARD_VS_CPU_WPE} WPE iteration')
+    check(not imported_jax(), 'the run imported jax or the JAX package')
+    return launches
+
+
+def session_soaks(torch, counts, work):
+    """Phase 13b: ``testing/soak.py``'s ``run_session_soak`` on the card,
+    serial over 1,000 utterances and on ``make_mesh(1, 1)`` over 400, at
+    its defaults (1 array x 4 mics, no WPE, a 2 + 1 EM, a 45 s window):
+    tests/test_session_soak.py's gates on the windowed wall, RSS and the
+    cache, the launches, and the card's allocated memory after the first
+    window within two of the cache's windows; returns the serial soak's
+    launches."""
+    import numpy as np
+    from pb_chime5_tpu_torch.parallel import make_mesh
+    from pb_chime5_tpu_torch.testing.soak import (
+        run_session_soak, windowed_means)
+    for label, n in SOAK_UTTERANCES.items():
+        mesh = None if label == 'serial' else make_mesh(1, 1)
+        counts.reset()
+        start = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            r = run_session_soak(work / 'soak' / label, num_utterances=n,
+                                 mesh=mesh, device='cuda')
+        total_s = time.perf_counter() - start
+        launches = counts.read()
+        if label == 'serial':
+            serial_launches = launches
+        wm = windowed_means(r['deltas_s'], SOAK_WINDOW)
+        steady = wm[1:]
+        rss = [m for i, m in r['rss_mb'] if i >= SOAK_WINDOW]
+        card = [m for i, m in r['device_mb'] if i >= SOAK_WINDOW]
+        window_mb = r['cache']['refill_mb'] / max(r['cache']['refills'], 1)
+        print(f'soak {label}', json.dumps({
+            'utterances': n, 'wall_s': r['wall_s'],
+            'with_corpus_s': total_s, 'span_s': r['span_s'],
+            'utterances_per_s': n / r['wall_s'],
+            'xrt_span': r['span_s'] / r['wall_s'],
+            'windowed_ms': [round(1e3 * v, 3) for v in wm],
+            'rss_mb': r['rss_mb'], 'device_mb': r['device_mb'],
+            'cache': r['cache'], 'launches': launches}), flush=True)
+        check(r['num_examples'] == r['num_wavs'] == n,
+              f'soak {label}: {r["num_wavs"]} WAVs of {n}')
+        check(launches == expected_soak_launches(launches, n),
+              f'soak {label}: launches {launches}, expected '
+              f'{expected_soak_launches(launches, n)}')
+        flat = steady.max() / steady.min()
+        if label == 'serial':
+            check(steady[-1] / steady[0] < 1.6 and flat < 2.0,
+                  f'soak {label}: windowed means {wm} not flat')
+            check(rss[-1] - rss[0] < 120.0 and r['cache']['refills'] >= 5,
+                  f'soak {label}: RSS {r["rss_mb"]}, cache {r["cache"]}')
+        else:
+            check(flat < 3.0 and rss[-1] - rss[0] < 450.0,
+                  f'soak {label}: windowed means {wm}, RSS {r["rss_mb"]}')
+        check(r['cache']['hits'] > 0.9 * n,
+              f'soak {label}: cache {r["cache"]}')
+        check(np.isfinite(card).all() and card[-1] - card[0]
+              <= 2 * window_mb,
+              f'soak {label}: allocated device memory {r["device_mb"]} '
+              f'grew by more than two {window_mb:.3f} MB windows')
+    check(not imported_jax(), 'the run imported jax or the JAX package')
+    return serial_launches
+
+
+def dry_runs(torch, counts):
+    """Phase 13c: ``dryrun.dryrun_multichip`` over DRYRUN_SLOTS slots of
+    cuda:0 (its own gates: every utterance back, finite, cached bit-equal
+    to direct); the launches: K1 and ``em_finalize`` twice (a 2 + 1 EM)
+    and the MVDR inverse once per leg, data group and frequency shard, no
+    WPE kernel (d = 8)."""
+    from pb_chime5_tpu_torch.dryrun import dryrun_multichip
+    counts.reset()
+    expected = dict.fromkeys(counts.read(), 0)
+    for slots in DRYRUN_SLOTS:
+        start = time.perf_counter()
+        dryrun_multichip(slots)
+        torch.cuda.synchronize()
+        print(f'dry run, {slots} slots of cuda:0 (data {slots // 2} x freq '
+              f'2): cached bit-equal to direct, '
+              f'{time.perf_counter() - start:.3f} s', flush=True)
+        runs = 2 * (slots // 2) * 2           # legs x data groups x shards
+        expected['fused_em_scatter'] += 2 * runs
+        expected['em_finalize'] += 2 * runs
+        expected['gauss_jordan_inverse_and_logdet'] += runs
+    launches = counts.read()
+    check(launches == expected,
+          f'dry runs: launches {launches}, expected {expected}')
+    check(not imported_jax(), 'the run imported jax or the JAX package')
+    return launches
+
+
+def tooling(torch, counts, session, db4, examples4, work):
+    """Phase 13d: the first TRACE_UTTERANCES of phase 8's session through
+    ``utils.profiling.trace`` (the trace file must name K1's kernel),
+    ``StageTimer(sync=True)`` waiting for the card; the
+    FLOP model's achieved TFLOP/s and MFU (fp32 peak) over P06's stage
+    windows and over phase 8's cached median wall and stage windows."""
+    from pb_chime5_tpu_torch.models import gss
+    from pb_chime5_tpu_torch.models.enhancer import get_enhancer
+    from pb_chime5_tpu_torch.utils import flops, profiling
+    db, n, _emitted_s, _valid_s, walls = session
+    enhancer = get_enhancer(multiarray=True, database_path=str(db),
+                            device='cuda')
+    with contextlib.redirect_stdout(io.StringIO()):
+        with profiling.trace(work / 'trace') as prof:
+            enhancer.enhance_session(['S02'], work / 'traced',
+                                     dataset_slice=TRACE_UTTERANCES)
+    trace_file = work / 'trace' / 'trace.json'
+    events = json.loads(trace_file.read_text())['traceEvents']
+    k1 = [e for e in events if 'fused_em_kernel' in e.get('name', '')
+          and e.get('cat') == 'kernel']
+    device_ms = sum(e.get('dur', 0) for e in k1) / 1e3
+    print(f'profiling.trace of {TRACE_UTTERANCES} utterances: '
+          f'{trace_file.stat().st_size / 1e6:.3f} MB, {len(events)} events, '
+          f"{len(k1)} of K1's kernel ({device_ms:.3f} ms on the card), "
+          f'{len(prof.key_averages())} ops and kernels', flush=True)
+    check(len(k1) == EM_PASSES * TRACE_UTTERANCES,
+          f'the trace names K1 {len(k1)} times, expected '
+          f'{EM_PASSES * TRACE_UTTERANCES}')
+    timer = profiling.StageTimer(sync=True)
+    x = torch.ones(1 << 24, device='cuda')
+    with timer('device_sync', result={'x': [x]}):
+        x = x * 2
+    check(torch.cuda.current_stream().query() and 'device_sync' in
+          timer.totals(), 'StageTimer(sync=True) returned before the card')
+
+    def dispatched_flops(enhancer, examples):
+        """{stage: FLOPs} of each example's dispatch: its length bucket
+        and channels, K = 5 (four speakers and the noise class)."""
+        return [flops.gss_stage_flops(
+            num_samples=enhancer._pipeline.bucket_length(
+                min(ns for _, ns in reads)),
+            D=sum(len(paths) for paths, _ in reads), K=5)
+            for reads in array_reads(enhancer, examples)]
+
+    p06_enhancer = get_enhancer(multiarray=True, database_path=str(db4),
+                                device='cuda')
+    p06 = max(examples4, key=observation_seconds)
+    p06_enhancer.enhance_example(p06)                    # warm
+    windows = stage_times(gss, p06_enhancer, p06)
+    (stages,) = dispatched_flops(p06_enhancer, [p06])
+    f_p06 = sum(stages.values())
+    rate, share = flops.mfu(f_p06, windows['total_ms'] / 1e3)
+    wpe = sum(v for k, v in stages.items() if k.startswith('wpe'))
+    print('MFU P06', json.dumps({
+        'utterance': p06['example_id'], 'tflop': f_p06 / 1e12,
+        'stage_tflop': {k: v / 1e12 for k, v in stages.items()},
+        'stage_windows_ms': windows, 'achieved_tflop_s': rate,
+        'mfu': share, 'mfu_wpe': flops.mfu(wpe, windows['wpe_ms'] / 1e3)[1],
+        'mfu_em': flops.mfu(stages['em'], windows['em_ms'] / 1e3)[1],
+        'peak_tflop_s': flops.H100_FP32_PEAK_TFLOPS}), flush=True)
+    total = sum(sum(f.values()) for f in dispatched_flops(
+        enhancer, list(enhancer.get_iterator('S02'))))
+    for label, seconds in (('median cached wall', walls['wall_s']),
+                           ('median stage windows', walls['chain_s'])):
+        rate, share = flops.mfu(total, seconds)
+        print('MFU phase 8 session', json.dumps({
+            'over': label, 'seconds': seconds, 'utterances': n,
+            'tflop': total / 1e12, 'achieved_tflop_s': rate, 'mfu': share}),
+            flush=True)
+    check(not imported_jax(), 'the run imported jax or the JAX package')
+
+
+def slice13_paths(torch, counts, session, db4, examples4, work):
+    """Phase 13; returns the launches of the refined path, the serial soak
+    and the dry runs."""
+    refined = refined_activity(torch, counts, session, work / 'aa')
+    torch.cuda.empty_cache()
+    soak = session_soaks(torch, counts, work)
+    torch.cuda.empty_cache()
+    dry = dry_runs(torch, counts)
+    torch.cuda.empty_cache()
+    tooling(torch, counts, session, db4, examples4, work)
+    return refined, soak, dry
+
+
 class LaunchCounts:
     """The launch counters of every kernel entry of the port."""
 
@@ -2959,6 +3313,12 @@ def main():
               'frequency sharding, two jobs and two processes, warmup')
         mesh_launches, k1_batched = parallel_paths(
             torch, counts, fused_em, session, work, examples)
+        torch.cuda.empty_cache()
+        phase('13 the alignment-refined activity, the session soak, the dry '
+              'run and the tooling')
+        refined_launches, soak_launches, dry_launches = slice13_paths(
+            torch, counts, session, work / 'chime5.json', examples,
+            work / 'slice13')
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -2970,7 +3330,9 @@ def main():
                     'CHiME-6 track 1': track1_launches,
                     'CHiME-6 track 2 (RTTM)': track2_launches,
                     "'xla' EM": xla_launches, 'float64': f64_launches,
-                    'mesh': mesh_launches}
+                    'mesh': mesh_launches,
+                    'alignment activity': refined_launches,
+                    'soak': soak_launches, 'dry run': dry_launches}
         return {'name': name, 'route': 'cuda',
                 'source': f'pb_chime5_tpu_torch/csrc/{source}',
                 'replaces': f'pb_chime5_tpu/ops/pallas/{replaces}',

@@ -18,7 +18,8 @@ from pb_chime5_tpu_torch.database import JsonDatabase
 from pb_chime5_tpu_torch.io import load_audio
 
 __all__ = ['Chime5', 'backup_orig_start_end', 'adjust_start_end',
-           'AddContext', 'read_audio']
+           'AddContext', 'read_audio', 'kaldi_to_nt_example_id',
+           'kaldi_id_to_parts', 'kaldi_id_to_channel']
 
 
 class Chime5(JsonDatabase):
@@ -146,3 +147,51 @@ def read_audio(ex):
     ``audio_data``, float64 (reference database.py:133-175)."""
     ex['audio_data'] = _read_tree(ex['audio_path'], ex['start'], ex['end'])
     return ex
+
+
+# Kaldi utterance ids (reference database.py:178-257)
+
+def kaldi_to_nt_example_id(example_id: str):
+    """'P28_S09_LIVING.R-0714562-0714764' -> 'P28_S09_0714562-0714764'."""
+    try:
+        split = example_id.split('_')
+        if len(split) == 4:
+            raise NotImplementedError(
+                f'Array IDs like "{example_id}" are currently unsupported, '
+                f'because they have different timestamps.')
+        P, S, remaining = split
+        _, start, end = remaining.split('-')
+        return f'{P}_{S}_{start}-{end}'
+    except NotImplementedError:
+        raise
+    except Exception as e:
+        raise ValueError(example_id) from e
+
+
+def kaldi_id_to_parts(example_id: str):
+    """A worn Kaldi id -> its speaker, session, array (the worn mic, the
+    speaker's), location and channel."""
+    try:
+        pre, post = example_id.split('.')
+        speaker_id, session_id, *array, location = pre.split('_')
+        channel, start, end = post.split('-')
+        assert len(array) <= 1, (array, example_id)
+        return {
+            'speaker_id': speaker_id,
+            'session_id': session_id,
+            'array_id': speaker_id,
+            'location': location,
+            'channel': channel,
+        }
+    except Exception as e:
+        raise ValueError(example_id) from e
+
+
+def kaldi_id_to_channel(example_id: str):
+    """'P28_S09_LIVING.R-0714562-0714764' -> 'R'."""
+    try:
+        _, post = example_id.split('.')
+        channel, _, _ = post.split('-')
+        return channel
+    except Exception as e:
+        raise ValueError(example_id) from e

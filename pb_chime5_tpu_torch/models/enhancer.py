@@ -56,7 +56,8 @@ DEFAULT_LENGTH_BUCKETS = tuple(
 class Activity:
     """Session activity provider (reference core.py:91-141): 'annotation'
     rasterizes the database's utterance annotations, 'path' loads
-    pre-computed per-session pickles."""
+    pre-computed per-session pickles (e.g. the alignment-refined activity
+    of ``python -m pb_chime5_tpu_torch.activity_alignment``)."""
     type: str = 'annotation'
     garbage_class: bool = False
     database_path: str = str(JSON_PATH / 'chime5.json')
@@ -69,6 +70,7 @@ class Activity:
     @functools.lru_cache(maxsize=1)
     def _load_annotation(self, session_id):
         return get_activity(self.db.get_datasets(session_id),
+                            perspective='array',
                             garbage_class=self.garbage_class)[session_id]
 
     @functools.lru_cache(maxsize=1)

@@ -7,8 +7,9 @@ the port (byte-identical WAVs) and the time-ordered dispatch against the
 JAX enhancer's order; plus a subprocess check that a port run
 (``gss_enhance``, and the CLIs ``run``, ``kaldi_run chime6=True`` and
 ``kaldi_run_rttm`` on a corpus the port makes, ``run`` with ``mesh=2``,
-under ``PB_JOB_ID`` and in a gloo process group) imports neither JAX nor
-the JAX package.
+under ``PB_JOB_ID`` and in a gloo process group, ``python -m
+pb_chime5_tpu_torch.activity_alignment`` on a stub Kaldi and ``run`` on its
+refined pickles) imports neither JAX nor the JAX package.
 
 Tolerance: the WAVs (peak-normalized int16 by ``dump_audio``) agree to
 2e-2 of full scale.  Both chains run the same float32 math in another
@@ -298,6 +299,23 @@ def test_port_run_imports_no_jax():
         exp = make_experiment(default_storage=root / 'gloo')
         exp.run_commandline(['test_run', 'with', 'session_id=S02', *small])
         assert distributed.is_master()
+        assert len(list((exp.run_dir / 'audio' / 'dev').glob('*.wav'))) == 2
+        import runpy
+        from pb_chime5_tpu_torch.database.chime5 import Chime5
+        from pb_chime5_tpu_torch.testing.fake_kaldi import (
+            make_fake_kaldi_root, write_fake_alignment)
+        write_fake_alignment(root / 'ali', Chime5(root / 'db.json')
+                             .get_datasets('S02'))
+        os.environ['KALDI_ROOT'] = str(make_fake_kaldi_root(root / 'kaldi'))
+        sys.argv = ['activity_alignment', '--database-path',
+                    str(root / 'db.json'), '--out-dir', str(root / 'cache'),
+                    '--sessions', 'S02', '--worn-ali-path', str(root / 'ali')]
+        runpy.run_module('pb_chime5_tpu_torch.activity_alignment',
+                         run_name='__main__')
+        exp = make_experiment(default_storage=root / 'path')
+        exp.run_commandline([
+            'test_run', 'with', 'session_id=S02', 'activity_type="path"',
+            f'activity_path="{root}/cache/word_non_sil_alignment"', *small])
         assert len(list((exp.run_dir / 'audio' / 'dev').glob('*.wav'))) == 2
         loaded = sorted({m.split('.')[0] for m in sys.modules})
         assert 'jax' not in loaded and 'pb_chime5_tpu' not in loaded, loaded

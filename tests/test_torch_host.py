@@ -207,3 +207,94 @@ def test_experiment_engine_matches_jax(tmp_path, fail):
     if not fail:
         assert results['port'] == results['jax'] == {
             'alpha': 100, 'beta': 'hello', 'gamma': (3, 4)}
+
+
+def _random_edits(seed, n=5000, edits=120):
+    """The same random scalar and array assignments on the port's and the
+    JAX package's ArrayInterval."""
+    rng = np.random.default_rng(seed)
+    got, want = utils.ArrayInterval(n), JaxArrayInterval(n)
+    for _ in range(edits):
+        s, e = sorted(int(v) for v in rng.integers(0, n + 1, 2))
+        kind = rng.integers(3)
+        if kind == 2:
+            value = rng.random(e - s) < rng.random()
+        else:
+            value = int(kind)
+        got[s:e] = value
+        want[s:e] = value
+    return got, want
+
+
+@pytest.mark.parametrize('seed', [0, 1, 2])
+def test_array_interval_array_assignment_matches_jax(seed):
+    got, want = _random_edits(seed)
+    assert got.normalized_intervals == want.normalized_intervals
+    np.testing.assert_array_equal(got[:], want[:])
+    assert got.sum() == want.sum() == int(want[:].sum())
+    dense = want[:]
+    assert utils.ArrayInterval.from_array(dense).normalized_intervals == \
+        JaxArrayInterval.from_array(dense).normalized_intervals
+    # list and tuple values, and a length mismatch, as JAX takes them
+    for value in ([True, False, True], (0, 1, 1)):
+        got[10:13] = value
+        want[10:13] = value
+    assert got.normalized_intervals == want.normalized_intervals
+    for track in (got, want):
+        with pytest.raises(AssertionError):
+            track[0:3] = [True, False]
+        with pytest.raises(NotImplementedError):
+            track[0:3] = 'x'
+
+
+@pytest.mark.parametrize('seed', [3, 4])
+def test_array_interval_str_eq_pickle_match_jax(seed):
+    import pickle
+    got, want = _random_edits(seed)
+    text = want._intervals_as_str
+    assert got._intervals_as_str == text
+    assert repr(got).split('(', 1)[1] == repr(want).split('(', 1)[1]
+    for shape in (5000, None):
+        a = utils.ArrayInterval.from_str(text, shape)
+        b = JaxArrayInterval.from_str(text, shape)
+        assert a.shape == b.shape
+        assert a.normalized_intervals == b.normalized_intervals
+    assert utils.array_interval_from_str('', 10) == utils.ArrayInterval(10)
+    assert utils.ArrayInterval.from_str(text, 5000) == got
+    assert got != utils.ArrayInterval.from_str(text, 5001)
+    assert got != utils.ArrayInterval(5000) or not text
+    assert (got == 'x') is False
+    loaded = pickle.loads(pickle.dumps(got))
+    assert type(loaded) is utils.ArrayInterval and loaded == got
+    assert b'pb_chime5_tpu_torch.utils.array_interval' in pickle.dumps(got)
+    assert b'pb_chime5_tpu.' not in pickle.dumps(got)
+    jax_loaded = pickle.loads(pickle.dumps(want))
+    assert jax_loaded.normalized_intervals == loaded.normalized_intervals
+    extra = utils.ArrayInterval(5000)
+    extra.add_intervals_from_str('1:4, 3:9,20:25')
+    jax_extra = JaxArrayInterval(5000)
+    jax_extra.add_intervals_from_str('1:4, 3:9,20:25')
+    assert extra.normalized_intervals == jax_extra.normalized_intervals
+
+
+def test_utils_package_reexports():
+    """Every name the single-module ``utils`` exported stays importable
+    from the package, beside the new ones."""
+    from pb_chime5_tpu.utils import merge as jax_merge
+    from pb_chime5_tpu.utils.activity_freq import (
+        activity_frequency_to_time as jax_f2t)
+    for name in ('Dispatcher', 'ArrayInterval', 'array_intervals_from_rttm',
+                 'segment_axis', 'activity_time_to_frequency', 'merge',
+                 'activity_frequency_to_time', 'array_interval_from_str'):
+        assert hasattr(utils, name), name
+    assert utils.merge({'a': 1}, {'b': 2}) == jax_merge({'a': 1}, {'b': 2})
+    with pytest.raises(AssertionError):
+        utils.merge({'a': 1}, {'a': 2})
+    act = np.random.default_rng(9).random((2, 40)) > 0.7
+    for length in (None, 6500, 6640, 6800):      # n = 40 * 160 + 240
+        np.testing.assert_array_equal(
+            utils.activity_frequency_to_time(act, 400, 160,
+                                             time_length=length),
+            jax_f2t(act, 400, 160, time_length=length))
+    with pytest.raises(NotImplementedError):
+        utils.activity_frequency_to_time(act, 400, 160, stft_fading=True)
