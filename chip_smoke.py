@@ -200,7 +200,20 @@ Phases (the first failure ends the run with a non-zero exit code):
    must name K1's kernel 20 times an utterance), and the FLOP model's
    achieved TFLOP/s and MFU against 67 TFLOP/s over P06's stage windows
    (whole chain, WPE, EM) and over phase 8's cached median wall and stage
-   windows (printed, not gated).
+   windows (printed, not gated);
+14. the float32 WPE statistics at a production length: the stress scene
+   of ``tests/test_torch_stress_headline.py`` (seed 0, 67 s, D = 24,
+   T = 4191) through the STFT and the default float32 WPE on the card,
+   once by the default statistics route (256-frame complex64 tiles added
+   into complex128) and once by K2 (``wpe_stats_backend='pallas'``, its
+   64-frame float32 spans added in float64), each counted from 0 (3
+   ``hermitian_solve_chol`` launches, and 3 K2 launches on K2's run);
+   gated on each: the output finite at all 513 frequencies, the second
+   iteration's R and P within 1.2e-6 of float64 sums of the same inputs
+   (relative Frobenius per frequency, R hermitized), its equilibrated
+   smallest eigenvalue plus the 1e-4 load positive at every frequency,
+   and K2 within 1e-5 of its plain version; printed: the WPE window and
+   the statistics call at T = 4191, and P06's WPE windows of phase 5.
 
 Before each path's run every kernel's launch count is set to 0, and it is
 read right after.  It imports the port (``pb_chime5_tpu_torch``) and the
@@ -212,7 +225,7 @@ limit, the kernels' JSON record and ``{"ok": true, "device": {...}}``.
 The record has one row per TPU kernel, with its launches on each path
 (``launches_per_path``: default, all-Pallas, CHiME-6 tracks 1 and 2, the
 'xla' EM, float64, the mesh, the alignment-refined activity, the serial
-soak, the dry runs);
+soak, the dry runs, the stress scene's WPE by each route);
 K3's and K4's rows list the
 Gauss-Jordan kernel's other entries under ``entries``; K5's row is its
 entry at the WPE solve (``hermitian_solve_chol``), with the TPU kernel's
@@ -248,6 +261,7 @@ LOG_WEIGHT_ATOL = 1e-6  # em_finalize's log-weights against the plain finalize
 SOLVE_RTOL = 1e-5    # K5 vs its plain version: relative Frobenius per freq.
 SOLVE_F64_RTOL = 1e-4  # K5 vs a float64 solve of the same loaded system
 WPE_LOAD = 1e-4      # the WPE filter solve's relative diagonal load
+STRESS_RTOL = 1.2e-6  # stress scene: R, P vs float64 sums of the same inputs
 SCENE_ATOL = 1e-2    # card vs CPU waveform, fraction of the peak
 EM_PASSES = 20       # fused E+M passes (and finalizes) per utterance at 20 + 1
 MVDR_SOLVES = 1      # complex64 Gauss-Jordan solves per utterance (MVDR)
@@ -990,15 +1004,17 @@ def all_pallas_path(torch, counts, enhancer, examples):
           f'observation {obs_s:.3f} s, emitted {len(x) / 16000:.3f} s, '
           f'xRT emitted {len(x) / 16000 / wall:.3f}, '
           f'xRT observation {obs_s / wall:.3f}', flush=True)
+    wpe_ms = {'default': [], 'all_pallas': []}
     for label, e in (('default', enhancer), ('all_pallas', pallas_enhancer),
                      ('default', enhancer), ('all_pallas', pallas_enhancer)):
+        ms = stage_times(gss, e, ex)
+        wpe_ms[label].append(ms['wpe_ms'])
         print('stages', json.dumps({'utterance': ex['example_id'],
-                                    'config': label,
-                                    **stage_times(gss, e, ex)}), flush=True)
+                                    'config': label, **ms}), flush=True)
     card_vs_cpu(torch, GssConfig(bss_iterations=10, **all_pallas),
                 'all-Pallas')
     check(not imported_jax(), 'the run imported jax or the JAX package')
-    return launches
+    return launches, wpe_ms
 
 
 def capture_k1_inputs(enhancer, ex, n=1):
@@ -3190,6 +3206,120 @@ def slice13_paths(torch, counts, session, db4, examples4, work):
     return refined, soak, dry
 
 
+# phase 14: the float32 WPE statistics at a production length (the stress
+# scene, where one float32 sum over all T left R indefinite past the load)
+
+def float64_statistics(torch, Y_tilde, Y, w, block=64):
+    """R, P in complex128 from the same inputs, 64 frequencies at a time."""
+    Rs, Ps = [], []
+    for f0 in range(0, Y_tilde.shape[0], block):
+        a = Y_tilde[f0:f0 + block].to(torch.complex128)
+        aw = a * w[f0:f0 + block, None, :].double()
+        Rs.append(aw @ a.conj().transpose(-2, -1))
+        Ps.append(aw @ Y[f0:f0 + block].to(torch.complex128)
+                  .conj().transpose(-2, -1))
+    return torch.cat(Rs), torch.cat(Ps)
+
+
+def stress_statistics(torch, captured, label):
+    """The gates on the second WPE iteration's statistics of one route."""
+    from pb_chime5_tpu_torch.ops.linalg import equilibrate
+    (Y_tilde, Y, w), (R, P) = captured
+    R64, P64 = float64_statistics(torch, Y_tilde, Y, w)
+    Rh = R.to(torch.complex128)
+    Rh = (Rh + Rh.conj().transpose(-2, -1)) / 2
+    err_R = (torch.linalg.matrix_norm(Rh - R64)
+             / torch.linalg.matrix_norm(R64))
+    err_P = (torch.linalg.matrix_norm(P.to(torch.complex128) - P64)
+             / torch.linalg.matrix_norm(P64))
+    eig = torch.linalg.eigvalsh(equilibrate(Rh, Rh[..., :1])[0]).amin(-1)
+    margin = eig + WPE_LOAD
+    reading = dict(route=label, err_R_max=float(err_R.max()),
+                   err_R_at_12_68_93=[float(err_R[f]) for f in (12, 68, 93)],
+                   err_P_max=float(err_P.max()),
+                   eig_plus_load_min=float(margin.min()),
+                   eig_at_12_68_93=[float(eig[f]) for f in (12, 68, 93)])
+    print('stress statistics', json.dumps(reading), flush=True)
+    check(float(err_R.max()) <= STRESS_RTOL
+          and float(err_P.max()) <= STRESS_RTOL,
+          f'{label}: the stress scene\'s statistics lie past {STRESS_RTOL} '
+          f'of float64 sums: {reading}')
+    check(bool((margin > 0).all()),
+          f'{label}: the equilibrated R falls past the load at '
+          f'{int((margin <= 0).sum())} frequencies: {reading}')
+    return reading
+
+
+def stress_wpe_path(torch, counts, wpe_stats, p06_wpe_ms):
+    """Phase 14; returns the launches of each route's run."""
+    import numpy as np
+    from pb_chime5_tpu_torch.models.gss import (
+        GssConfig, _stft_and_mask, _wpe_stage)
+    from pb_chime5_tpu_torch.ops import wpe
+    from tests.test_torch_kernels_cuda import stats_errors
+    from tests.test_torch_stress_headline import make_production_scene
+    obs, _, _ = make_production_scene(np.random.default_rng(0))
+    obs = torch.from_numpy(obs.astype(np.float32)).cuda()
+    launches = {}
+    for label, name, config in (
+            ('default', 'wpe_statistics_reference', GssConfig()),
+            ('K2', 'wpe_statistics', GssConfig(wpe_stats_backend='pallas'))):
+        O, fm, _ = _stft_and_mask(obs, None, config)
+        real = getattr(wpe, name)
+        captured = []
+
+        def stats(Y_tilde, Y, w):
+            out = real(Y_tilde, Y, w)
+            if len(captured) == 1:       # the second iteration
+                captured.append(((Y_tilde, Y, w.clone()), out))
+            else:
+                captured.append(None)
+            return out
+        setattr(wpe, name, stats)
+        try:
+            counts.reset()
+            X = _wpe_stage(O, config, fm)
+            torch.cuda.synchronize()
+            launches[label] = counts.read()
+        finally:
+            setattr(wpe, name, real)
+        print(f'stress WPE ({label}) launches: {launches[label]}',
+              flush=True)
+        expected = {**dict.fromkeys(launches[label], 0),
+                    'hermitian_solve_chol': WPE_ITERATIONS}
+        if label == 'K2':
+            expected['wpe_statistics'] = WPE_ITERATIONS
+        check(launches[label] == expected,
+              f'stress WPE ({label}) launches {launches[label]}, expected '
+              f'{expected}')
+        finite = torch.isfinite(X.reshape(X.shape[0], -1)).all(dim=1)
+        check(bool(finite.all()),
+              f'stress WPE ({label}): not finite at frequencies '
+              f'{torch.nonzero(~finite).flatten().tolist()[:20]}')
+        stress_statistics(torch, captured[1], label)
+        (Y_tilde, Y, w), _ = captured[1]
+        if label == 'K2':
+            rel_R, rel_P, max_abs = stats_errors(
+                *wpe_stats.wpe_statistics(Y_tilde, Y, w),
+                *wpe_stats.wpe_statistics_reference(Y_tilde, Y, w))
+            print(f'stress K2 vs plain: rel_R {rel_R:.3e}, rel_P '
+                  f'{rel_P:.3e} (<= {STATS_RTOL}), max_abs {max_abs:.3e}',
+                  flush=True)
+            check(rel_R <= STATS_RTOL and rel_P <= STATS_RTOL,
+                  'K2 disagrees with its plain version on the stress scene')
+        window_ms = cuda_ms(torch, lambda: _wpe_stage(O, config, fm), 1)
+        call_ms = cuda_ms(torch, lambda: real(Y_tilde, Y, w), 2)
+        print(f'stress WPE ({label}) at D = 24, T = {O.shape[-1]}: window '
+              f'{window_ms:.3f} ms, statistics call {call_ms:.3f} ms',
+              flush=True)
+        del O, fm, X, captured, Y_tilde, Y, w
+        torch.cuda.empty_cache()
+    print(f'P06 WPE windows (phase 5, ms): {json.dumps(p06_wpe_ms)}',
+          flush=True)
+    check(not imported_jax(), 'the run imported jax or the JAX package')
+    return launches
+
+
 class LaunchCounts:
     """The launch counters of every kernel entry of the port."""
 
@@ -3279,7 +3409,8 @@ def main():
         default_launches, enhancer, examples = default_path(
             torch, counts, work)
         phase('5 all-Pallas path')
-        pallas_launches = all_pallas_path(torch, counts, enhancer, examples)
+        pallas_launches, p06_wpe_ms = all_pallas_path(
+            torch, counts, enhancer, examples)
         torch.cuda.empty_cache()
         phase('6 K1, em_finalize and the MVDR inverse on the EM state, and '
               'the WPE systems, of P06')
@@ -3319,6 +3450,11 @@ def main():
         refined_launches, soak_launches, dry_launches = slice13_paths(
             torch, counts, session, work / 'chime5.json', examples,
             work / 'slice13')
+        torch.cuda.empty_cache()
+        phase('14 the float32 WPE statistics on the stress scene (D = 24, '
+              'T = 4191): the default route and K2')
+        stress_launches = stress_wpe_path(torch, counts, wpe_stats,
+                                          p06_wpe_ms)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -3332,7 +3468,9 @@ def main():
                     "'xla' EM": xla_launches, 'float64': f64_launches,
                     'mesh': mesh_launches,
                     'alignment activity': refined_launches,
-                    'soak': soak_launches, 'dry run': dry_launches}
+                    'soak': soak_launches, 'dry run': dry_launches,
+                    'stress WPE, default route': stress_launches['default'],
+                    'stress WPE, K2': stress_launches['K2']}
         return {'name': name, 'route': 'cuda',
                 'source': f'pb_chime5_tpu_torch/csrc/{source}',
                 'replaces': f'pb_chime5_tpu/ops/pallas/{replaces}',

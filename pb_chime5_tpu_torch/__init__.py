@@ -7,13 +7,18 @@ the public functions: ``(F, D, T)`` through WPE and the beamformer,
 ``(F, T, D)`` into the EM, masks ``(K, T, F)`` out.
 
 It imports ``torch``, never ``jax``, and nothing of the JAX package: its
-host layer (``mapping``, ``io``, ``utils``, ``activity``, ``database``,
-``testing``) is its own copy of the part the enhancer uses, so the port
-runs where only it is installed.  The cacGMM E+M accumulation runs in a
-hand-written CUDA kernel (``csrc/fused_em.cu``) built with ``nvcc`` at
-first use; every other stage is plain PyTorch.
+host layer (``mapping``, ``io``, ``utils``, ``math``, ``activity``,
+``database``, ``visualization``, ``testing``) is its own copy of the JAX
+package's, so the port runs where only it is installed.  The TPU kernels'
+counterparts are hand-written CUDA kernels (``csrc/*.cu``) built with
+``nvcc`` at first use; every other stage is plain PyTorch.
 """
+
+from pathlib import Path
 
 from pb_chime5_tpu_torch import _device  # noqa: F401  (pins precision)
 
 __version__ = '0.1.0'
+
+package_root = Path(__file__).parent
+repo_root = package_root.parent

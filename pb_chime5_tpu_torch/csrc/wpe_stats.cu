@@ -20,8 +20,9 @@
 // R plus P is 34,680 complex entries a frequency, 8 flops each a frame:
 // 320.8 GFLOP over the valid frames, 4.79 ms at the 67 TFLOP/s fp32 rate of
 // the CUDA cores, against 2.72 GB read once (0.81 ms at 3.35 TB/s).  IEEE
-// fp32 FMA only: no TF32, no tensor cores (reduced-precision statistics NaN
-// the WPE on scenes with near-silent stretches).
+// fp32 FMA, its spans added in float64 (below; one DADD an entry every 64
+// frames): no TF32, no tensor cores (reduced-precision statistics NaN the
+// WPE on scenes with near-silent stretches).
 //
 // Design.  Rows go in quads of 4 and in blocks of 64 (16 quads).
 //   * Work: a thread owns a 4 x 8 register tile of complex sums, one quad of
@@ -42,7 +43,9 @@
 //     together with P's first 24 columns (both multiply the rows of block
 //     I; 72 + 16 x 3 tiles fit 128 threads); P's further columns in blocks
 //     of 64 (D > 24 only).  The headline has 10 tasks a frequency with 3 or
-//     4 working warps each, 5130 CTAs, 4 CTAs an SM.  The tasks of a
+//     4 working warps each, 5130 CTAs, 2 CTAs an SM (255 registers a
+//     thread with the float64 shadow below; 117 and 4 CTAs an SM
+//     without it).  The tasks of a
 //     frequency are adjacent in the grid, so they read its rows from L2 at
 //     about the same time.
 //   * Staging: T in chunks of 16 frames at fixed offsets (frames 16 c ..).
@@ -60,9 +63,26 @@
 //   * Zero chunks: a chunk whose weighted rows are all zero (the masked
 //     tail, bucket padding) is skipped by the whole CTA (__syncthreads_or).
 //     For finite inputs it would add exactly nothing.
-//   * Order: each entry is one thread's sum over t in order: no atomics and
-//     no split of T.  The result is bit-identical run to run, and frames of
-//     zero appended to T leave R and P bit-identical.
+//   * Two-level sum: each entry is one thread's sum over t in order, in two
+//     levels.  The 4 x 8 tile sums kSpanChunks computed chunks (64 frames)
+//     in float32 FFMA, then adds into a float64 shadow of the tile and
+//     starts again from zero; the shadow is rounded to float32 once, at the
+//     end.  A single float32 sum over all T frames drifts from the float64
+//     sums of the same inputs by ~sqrt(T) roundings (4.75-5.97e-6 of R at
+//     T = 4191, where the second WPE iteration's R then fell past the 1e-4
+//     load at 3 frequencies and the solve returned NaN); a span of 64
+//     frames drifts by ~sqrt(64).  No atomics and no split of T: the result
+//     is bit-identical run to run, and frames of zero appended to T leave R
+//     and P bit-identical (their chunks are skipped and do not count toward
+//     a span).  On the stress scene's second WPE iteration (T = 4191) R lies
+//     at most 2.86e-7 from the float64 sums (chip_smoke.py phase 14;
+//     5.97e-6 with one float32 sum, scripts_dev/diag_stress_wpe_card.py),
+//     at 10.53 against 8.68 ms at the headline: the shadow's registers
+//     halve the CTAs an SM (H100 80GB HBM3, 700 W, in turns with the
+//     one-level source, scripts_dev/diag_k2_card.py).  Float64 sums in
+//     shared memory instead need 64 KB more a CTA, which leaves 2 CTAs an
+//     SM as well: bit-identical, 10.46 ms at 208 registers, and 11.18 ms
+//     where launch bounds of 4 CTAs force spills (same script and turns).
 
 #include <atomic>
 
@@ -77,6 +97,8 @@ constexpr int kBlockRows = 4 * kQuads;      // 64
 constexpr int kRawQuads = 2 * kQuads;       // block I, then the other block
 constexpr int kGroups = kRawQuads / 4;      // column groups of 2 quad pairs
 constexpr int kFirstP = 24;                 // P's columns beside block I
+constexpr int kSpanChunks = 4;              // float32 chunks per float64 add
+constexpr int kMinBlocks = 2;               // the float64 shadow's registers
 static_assert((kQuads / 2) * (kQuads / 2 + 1) + kQuads * (kFirstP / 8) <=
                   kThreads,
               "the diagonal block and P's first columns fit the threads");
@@ -131,7 +153,7 @@ __device__ __forceinline__ int needed(int kind, int g, int i, int nq0,
   return min(max(np1 - 2 * (g - kGroups / 2), 0), 2);
 }
 
-__global__ void __launch_bounds__(kThreads, 4)
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
 wpe_stats_kernel(const float2* __restrict__ yt,   // (F, dim, T)
                  const float2* __restrict__ y,    // (F, D, T)
                  const float* __restrict__ w,     // (F, T)
@@ -265,11 +287,26 @@ wpe_stats_kernel(const float2* __restrict__ yt,   // (F, dim, T)
   const int wraw = wt * kRawStride + 4 * (wh * kRawQuads + wq);
   float* const wa = sA + wt * kAStride + 4 * (wh * kQuads + wq);
 
-  float re[4][8], im[4][8];
+  float re[4][8], im[4][8];      // this span's float32 sums
+  double sre[4][8], sim[4][8];   // the spans' float64 sums
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < 8; ++j) re[i][j] = im[i][j] = 0.f;
+    for (int j = 0; j < 8; ++j) {
+      re[i][j] = im[i][j] = 0.f;
+      sre[i][j] = sim[i][j] = 0.0;
+    }
+  auto flush = [&]() {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        sre[i][j] += re[i][j];
+        sim[i][j] += im[i][j];
+        re[i][j] = im[i][j] = 0.f;
+      }
+  };
+  int span = 0;   // chunks summed in float32 since the last flush
   const float* pa = sA + 4 * qi;
 
   stage(0, 0);
@@ -332,10 +369,15 @@ wpe_stats_kernel(const float2* __restrict__ yt,   // (F, dim, T)
           }
         }
       }
+      if (++span == kSpanChunks) {
+        flush();
+        span = 0;
+      }
     }
   }
 
   if (!own) return;
+  flush();
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int a = kBlockRows * I + 4 * qi + i;
@@ -343,7 +385,7 @@ wpe_stats_kernel(const float2* __restrict__ yt,   // (F, dim, T)
     float2* Ra = R + ((size_t)f * dim + a) * dim;
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
-      const float2 v = make_float2(re[i][j], im[i][j]);
+      const float2 v = make_float2((float)sre[i][j], (float)sim[i][j]);
       const int col = 8 * (qv % (kQuads / 2)) + j;   // column of its block
       if (qv < kQuads / 2 || kind == kOffDiagonal) {   // R
         const int b = kBlockRows * (qv < kQuads / 2 ? I : J) + col;
@@ -359,7 +401,7 @@ wpe_stats_kernel(const float2* __restrict__ yt,   // (F, dim, T)
   }
 }
 
-// The largest shared-memory carveout, so that 4 CTAs fit an SM (and the
+// The largest shared-memory carveout, so that the CTAs fit an SM (and the
 // opt-in to more than 48 KB of dynamic shared memory, should the layout
 // grow), once per device
 cudaError_t opt_in() {

@@ -10,6 +10,7 @@ its directory layout.
 
 import collections
 import itertools
+import weakref
 from pathlib import Path
 
 import numpy as np
@@ -86,6 +87,7 @@ class RTTMDatabase(DictDatabase):
         self._audio_paths = audio_paths
         self._alias = alias or {}
         self._database_dict_cache = None
+        self._dataset_cache = weakref.WeakValueDictionary()
 
     def __repr__(self):
         return f'{type(self).__name__}({self._rttm_path!r})'

@@ -99,6 +99,17 @@ class Enhancer(_Chime6Enhancer):
         """One example with its ``audio_data`` -> the emitted waveform."""
         return self._enhance_loaded(ex, None, ex['audio_data'])
 
+    def enhance_observation(self, obs, ex_array_activity, speaker_id,
+                            ex=None):
+        """One observation -> the enhanced waveform, untrimmed; the
+        activity and the target speaker default (``None``) to ``ex``'s."""
+        if ex_array_activity is None:
+            ex_array_activity = self._example_activity(ex, None)
+        if speaker_id is None:
+            speaker_id = ex['speaker_id']
+        return super().enhance_observation(obs, ex_array_activity,
+                                           speaker_id, ex)
+
 
 def get_database(chime6_dir, rttm, multiarray):
     """The audio-glob database of a ``multiarray`` policy (reference

@@ -8,6 +8,11 @@ version.
 placement, dtype, layout or size it raises.  Nothing falls back: a
 failed build or launch raises.  ``wpe_statistics.launches`` counts kernel
 launches (never reference calls).
+
+Both versions sum T in two levels, float32 then float64 (the kernel in
+64-frame spans, the plain version in ``TILE``-frame complex64 matmuls):
+one float32 sum over all T left the second WPE iteration's R indefinite
+past the 1e-4 load at T = 4191 (``ops/wpe.py``).
 """
 
 import ctypes
@@ -16,9 +21,11 @@ import torch
 
 from pb_chime5_tpu_torch.ops.kernels._build import check_launch, kernel_entry
 
-__all__ = ['wpe_statistics', 'wpe_statistics_reference']
+__all__ = ['wpe_statistics', 'wpe_statistics_reference',
+           'accumulate_statistics', 'TILE']
 
 _ARGTYPES = (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 4 + (ctypes.c_void_p,)
+TILE = 256      # frames a tile of the plain version's T sum (default route)
 
 
 def _check(Y_tilde, Y, inv_power):
@@ -78,8 +85,30 @@ wpe_statistics.launches = 0
 
 
 def wpe_statistics_reference(Y_tilde, Y, inv_power):
-    """Plain PyTorch version of :func:`wpe_statistics`: the weighted
-    complex matmuls."""
-    weighted = Y_tilde * inv_power[:, None, :].to(Y_tilde.dtype)
-    return (weighted @ Y_tilde.conj().transpose(-2, -1),
-            weighted @ Y.conj().transpose(-2, -1))
+    """Plain PyTorch version of :func:`wpe_statistics`, and the default
+    route's statistics: the weighted complex matmuls over T-tiles of
+    ``TILE`` frames, each tile's product added into complex128 sums
+    (:func:`accumulate_statistics`), rounded to the input's dtype once.
+    One matmul over all T drifts from the float64 sums by ~sqrt(T)
+    roundings; a tile by ~sqrt(TILE)."""
+    F, dim, _ = Y_tilde.shape
+    R = torch.zeros((F, dim, dim), dtype=torch.complex128,
+                    device=Y_tilde.device)
+    P = torch.zeros((F, dim, Y.shape[-2]), dtype=torch.complex128,
+                    device=Y_tilde.device)
+    accumulate_statistics(R, P, Y_tilde, Y, inv_power)
+    return R.to(Y_tilde.dtype), P.to(Y_tilde.dtype)
+
+
+def accumulate_statistics(R, P, Y_tilde, Y, inv_power):
+    """R += sum_t w_t Ytilde_t Ytilde_t^H, P += sum_t w_t Ytilde_t Y_t^H:
+    for complex64, one weighted matmul pair a tile of ``TILE`` frames,
+    added into R and P (complex128); complex128 input, whose matmuls
+    already sum in float64, as one pair over all its frames."""
+    T = Y_tilde.shape[-1]
+    tile = T if Y_tilde.dtype == torch.complex128 else TILE
+    for t0 in range(0, T, tile):
+        yt = Y_tilde[..., t0:t0 + tile]
+        weighted = yt * inv_power[:, None, t0:t0 + tile].to(yt.dtype)
+        R += weighted @ yt.conj().transpose(-2, -1)
+        P += weighted @ Y[..., t0:t0 + tile].conj().transpose(-2, -1)

@@ -17,6 +17,9 @@
   panels, with their floor, in the hand-written Cholesky kernel
   (``ops/kernels/chol_solve.py::hermitian_solve_chol``, called by
   ``ops/wpe.py``); complex128 and d > 256 still solve here.
+* :func:`blocked_cholesky` and :func:`blocked_cholesky_solve` are the JAX
+  blocked Cholesky (the panels of the WPE solve's plain version, pivots
+  floored at ``eps^2 * max(diag)``) and its blocked substitutions.
 * :func:`dominant_eigenvector` is the JAX repeated squaring, with the
   largest column picked by indexing (the one-hot reduction was a TPU
   workaround); :func:`stable_cholesky` returns NaN where the
@@ -28,7 +31,8 @@ import torch
 __all__ = ['hermitize', 'eye_like', 'stable_solve', 'stable_cholesky',
            'gauss_jordan_inverse_and_logdet',
            'block_gauss_jordan_inverse_and_logdet', 'schur_inverse_and_logdet',
-           'equilibrate', 'hermitian_solve', 'dominant_eigenvector']
+           'equilibrate', 'hermitian_solve', 'dominant_eigenvector',
+           'blocked_cholesky', 'blocked_cholesky_solve']
 
 
 def hermitize(mat):
@@ -292,3 +296,57 @@ def dominant_eigenvector(M, *, squarings=14, power_steps=2):
     return v * torch.sign(torch.where(v[..., :1] == 0,
                                       torch.ones_like(v[..., :1]),
                                       v[..., :1]))
+
+
+def blocked_cholesky(A, *, block=32):
+    """The lower factor L of A = L L^H for batched Hermitian PD A
+    (..., d, d), by the JAX package's right-looking panels (its default
+    block of 32: ``ops/kernels/chol_solve.py``'s plain version), each pivot
+    floored at ``eps^2 * max(diag)``; zero above the diagonal."""
+    from pb_chime5_tpu_torch.ops.kernels.chol_solve import (
+        BLOCK, _cholesky_panels)
+    if block != BLOCK:
+        raise NotImplementedError(f'block={block}: the panels are {BLOCK} '
+                                  f'wide')
+    d = A.shape[-1]
+    A3 = A.reshape(-1, d, d)
+    col_blocks, _ = _cholesky_panels(A3)
+    dp = len(col_blocks) * BLOCK
+    L = A3.new_zeros((A3.shape[0], dp, dp))
+    for j, cb in enumerate(col_blocks):
+        L[:, j * BLOCK:, j * BLOCK:(j + 1) * BLOCK] = cb
+    return L[:, :d, :d].reshape(A.shape)
+
+
+def blocked_cholesky_solve(L, B, *, block=32):
+    """X with L L^H X = B for the factor of :func:`blocked_cholesky`:
+    blocked forward and backward substitutions, each diagonal block
+    applied by its Gauss-Jordan inverse (a partial last block padded with
+    an identity), as the JAX package solves.  L (..., d, d), B (..., d, e)
+    -> (..., d, e)."""
+    d = L.shape[-1]
+    spans = [(lo, min(lo + block, d)) for lo in range(0, d, block)]
+    inv_diag = []
+    for lo, hi in spans:
+        blk = L[..., lo:hi, lo:hi]
+        if hi - lo < block:
+            full = torch.eye(block, dtype=L.dtype, device=L.device).expand(
+                *L.shape[:-2], block, block).clone()
+            full[..., :hi - lo, :hi - lo] = blk
+            blk = full
+        inv_diag.append(
+            gauss_jordan_inverse_and_logdet(blk)[0][..., :hi - lo, :hi - lo])
+    Y = torch.zeros_like(B)
+    for (lo, hi), inv in zip(spans, inv_diag):
+        rhs = B[..., lo:hi, :]
+        if lo:
+            rhs = rhs - L[..., lo:hi, :lo] @ Y[..., :lo, :]
+        Y[..., lo:hi, :] = inv @ rhs
+    X = torch.zeros_like(B)
+    for (lo, hi), inv in reversed(list(zip(spans, inv_diag))):
+        rhs = Y[..., lo:hi, :]
+        if hi < d:
+            rhs = rhs - L[..., hi:, lo:hi].conj().transpose(-2, -1) \
+                @ X[..., hi:, :]
+        X[..., lo:hi, :] = inv.conj().transpose(-2, -1) @ rhs
+    return X

@@ -9,13 +9,22 @@ Iterative offline WPE batched over frequency:
   then frame-masked and floored at ``1e-10 * max_t lambda``,
 * stacked delayed observations ``Ytilde`` (F, taps * D, T),
 * statistics ``R = hermitize((Ytilde w) Ytilde^H)``,
-  ``P = (Ytilde w) Y^H``: by default (``stats_backend='auto'`` or
-  ``'xla'``, the JAX ``'xla'`` formulation) as complex ``torch.matmul``
+  ``P = (Ytilde w) Y^H``, summed over T in two levels: float32 sums over
+  short spans of frames, added across spans in float64, rounded to
+  complex64 once.  By default (``stats_backend='auto'`` or ``'xla'``)
+  as complex ``torch.matmul`` over 256-frame tiles added into complex128
   (:func:`~pb_chime5_tpu_torch.ops.kernels.wpe_stats.wpe_statistics_reference`;
-  cuBLAS, IEEE float32 — TF32 is pinned off, see ``_device.py``); with
+  cuBLAS, IEEE float32 — TF32 is pinned off, see ``_device.py`` — the JAX
+  Pallas kernel's time tiles, with the cross-tile sum in float64); with
   ``stats_backend='pallas'`` in one launch of the statistics kernel
-  (:func:`~pb_chime5_tpu_torch.ops.kernels.wpe_stats.wpe_statistics`),
-  then hermitized, as the JAX ``'pallas'`` backend does,
+  (:func:`~pb_chime5_tpu_torch.ops.kernels.wpe_stats.wpe_statistics`:
+  64-frame float32 spans into float64 registers), then hermitized, as
+  the JAX ``'pallas'`` backend does.  One float32 sum over all T drifted
+  4.75-5.97e-6 from the float64 sums on the stress scene (D = 24,
+  T = 4191), and its second iteration's R fell past the 1e-4 load at 3
+  frequencies, where the solve returned NaN; the tiles lie within
+  8.6e-7 of them and the kernel's spans within 2.9e-7 (H100 80GB HBM3,
+  ``chip_smoke.py`` phase 14),
 * filter ``G = R^{-1} P`` by the equilibrated, diagonally loaded
   Hermitian solve with ``solve_refine`` iterative-refinement steps
   against the unloaded R: for complex64 with ``32 < taps * D <= 256``
@@ -35,7 +44,8 @@ Iterative offline WPE batched over frequency:
 The rows are independent: a batch of B utterances runs as B * F rows,
 with its frame mask given per row, (B * F, T).
 
-``chunk_size`` accumulates R and P over T-chunks of that many frames and
+``chunk_size`` accumulates R and P over T-chunks of that many frames
+(into complex128, each chunk in the default route's tiles) and
 applies the filter chunk by chunk, so the (F, taps * D, T) stack is never
 materialized.  The chunked statistics are the complex matmuls for every
 ``stats_backend``: with 'pallas' the statistics kernel is not launched,
@@ -57,7 +67,7 @@ from pb_chime5_tpu_torch.ops.kernels import chol_solve
 from pb_chime5_tpu_torch.ops.kernels.chol_solve import (
     BLOCK, hermitian_solve_chol, supports)
 from pb_chime5_tpu_torch.ops.kernels.wpe_stats import (
-    wpe_statistics, wpe_statistics_reference)
+    accumulate_statistics, wpe_statistics, wpe_statistics_reference)
 from pb_chime5_tpu_torch.ops.linalg import (
     equilibrate, hermitize, hermitian_solve, stable_solve)
 
@@ -181,15 +191,15 @@ def _chunked_wpe_iteration(Y, inv_power, taps, delay, regularization,
         return yt
 
     dim = taps * D
-    R = torch.zeros((F, dim, dim), dtype=Y.dtype, device=Y.device)
-    P = torch.zeros((F, dim, D), dtype=Y.dtype, device=Y.device)
+    R = torch.zeros((F, dim, dim), dtype=torch.complex128, device=Y.device)
+    P = torch.zeros((F, dim, D), dtype=torch.complex128, device=Y.device)
     for start in range(0, T + pad, chunk_size):
-        yt = chunk_tilde(start)
-        yc = Yp[..., start + hist:start + hist + chunk_size]
-        weighted = yt * wp[:, None, start:start + chunk_size].to(yt.dtype)
-        R = R + weighted @ yt.conj().transpose(-2, -1)
-        P = P + weighted @ yc.conj().transpose(-2, -1)
-    G = _solve_G(hermitize(R), P, regularization, solve_refine)
+        accumulate_statistics(
+            R, P, chunk_tilde(start),
+            Yp[..., start + hist:start + hist + chunk_size],
+            wp[:, start:start + chunk_size])
+    G = _solve_G(hermitize(R.to(Y.dtype)), P.to(Y.dtype), regularization,
+                 solve_refine)
     Gh = G.conj().transpose(-2, -1)
     tail = torch.cat([Gh @ chunk_tilde(start)
                       for start in range(0, T + pad, chunk_size)], dim=-1)

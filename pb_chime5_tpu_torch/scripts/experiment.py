@@ -51,6 +51,22 @@ class Experiment:
     def named_config(self, name, cfg: dict):
         self._named_configs[name] = cfg
 
+    def capture_kwargs(self, fn):
+        """The keywords of ``fn`` that the config holds, with its values."""
+        return {key: self.config[key]
+                for key in inspect.signature(fn).parameters
+                if key in self.config}
+
+    def command(self, fn):
+        """Register ``fn(experiment)`` as the command of its name."""
+        self._commands[fn.__name__] = fn
+        return fn
+
+    def main(self, fn):
+        """Register ``fn(experiment)`` as the default command."""
+        self._commands['main'] = fn
+        return fn
+
     def _create_run_dir(self, storage_dir):
         storage_dir = Path(storage_dir)
         storage_dir.mkdir(parents=True, exist_ok=True)

@@ -7,6 +7,8 @@ import subprocess
 
 __all__ = ['run_process']
 
+DEBUG_MODE = False
+
 
 def run_process(cmd, *, shell=None, check=True, environment=None, cwd=None,
                 input=None, stdout=subprocess.PIPE, stderr=subprocess.PIPE,

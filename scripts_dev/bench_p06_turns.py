@@ -13,10 +13,16 @@ each, for the default and the all-Pallas configurations, warm: the walls
 of 3 ``enhance_example`` calls of P06 (the longer of the CLI
 ``test_run``'s two utterances) and the stage windows (CUDA events) of 2
 more, of which the EM and WPE windows are summarized (median and range a
-tree); then one default call under ``torch.profiler``: its CUDA kernel
+tree), and the peak device memory those calls add above what the warm
+enhancer holds; then one default call under ``torch.profiler``: its CUDA kernel
 launches, memory copies and sets, the union of their device intervals
-(busy time) and the span from the first to the last.  Each process
-prints one JSON line; the medians per tree close the run.
+(busy time) and the span from the first to the last; then the WPE
+statistics call alone, by the default route (``wpe_statistics_reference``)
+and by K2 (``wpe_statistics``), on ``chip_smoke.py``'s K2 inputs (F = 513,
+dim = 240, D = 24) at the headline's T = 2504 and the stress scene's
+T = 4191: its time (``chip_smoke.cuda_ms``) and the peak device memory
+one call adds.  Each process prints one JSON line; the medians per tree
+close the run.
 
 Needs one CUDA card; imports the port only, never JAX.
 """
@@ -70,6 +76,33 @@ def profile_call(torch, enhancer, ex):
                 wall_ms=wall * 1e3)
 
 
+def statistics_calls(torch):
+    """The statistics call by each route: ms and the GiB one call adds."""
+    sys.path.insert(1, str(REPO))      # after the tree: its port comes first
+    import chip_smoke
+    from pb_chime5_tpu_torch.ops.kernels import wpe_stats
+    from tests.test_torch_kernels_cuda import wpe_inputs
+    routes = {'default': wpe_stats.wpe_statistics_reference,
+              'k2': wpe_stats.wpe_statistics}
+    F, T, D, _ = chip_smoke.HEADLINE
+    out = {}
+    for frames in (T, 4191):
+        Yt, Y, w, _ = wpe_inputs(F, D, frames, taps=chip_smoke.WPE_TAPS,
+                                 seed=11, device='cuda')
+        for name, fn in routes.items():
+            ms = chip_smoke.cuda_ms(torch, lambda fn=fn: fn(Yt, Y, w), 2)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            result = fn(Yt, Y, w)
+            torch.cuda.synchronize()
+            peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+            del result
+            out[f'{name}_T{frames}'] = dict(ms=ms, peak_gib=peak)
+        del Yt, Y, w
+    return out
+
+
 def worker(tree, db):
     sys.path.insert(0, tree)
     import torch
@@ -84,6 +117,9 @@ def worker(tree, db):
         enhancer, gss_config=GssConfig(**ALL_PALLAS))}
     for name, e in configs.items():
         e.enhance_example(ex)                    # warm-up, kernel builds
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
         walls = []
         for _ in range(3):
             torch.cuda.synchronize()
@@ -95,10 +131,12 @@ def worker(tree, db):
             with gss.record_stage_times() as times:
                 e.enhance_example(ex)
             stages.append({k: round(v, 3) for k, v in times[0].items()})
+        peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
         result[name] = dict(walls_s=walls, em_ms=[s['em'] for s in stages],
                             wpe_ms=[s['wpe'] for s in stages],
-                            stages=stages)
+                            peak_gib=[peak], stages=stages)
     result['default_profile'] = profile_call(torch, enhancer, ex)
+    result['statistics'] = statistics_calls(torch)
     print(json.dumps(result), flush=True)
 
 
@@ -140,13 +178,19 @@ def main():
         summary = {'tree': name}
         for config in ('default', 'all_pallas'):
             for key, field in (('wall_s', 'walls_s'), ('em_ms', 'em_ms'),
-                               ('wpe_ms', 'wpe_ms')):
+                               ('wpe_ms', 'wpe_ms'), ('peak_gib', 'peak_gib')):
                 values = [v for r in results for v in r[config][field]]
                 summary[f'{config}_{key}'] = statistics.median(values)
                 summary[f'{config}_{key}_range'] = [min(values), max(values)]
         for key in ('kernels', 'busy_ms', 'span_ms', 'wall_ms'):
             summary[f'default_{key}'] = statistics.median(
                 r['default_profile'][key] for r in results)
+        for call in results[0]['statistics']:
+            for key in ('ms', 'peak_gib'):
+                values = [r['statistics'][call][key] for r in results]
+                summary[f'statistics_{call}_{key}'] = statistics.median(values)
+                summary[f'statistics_{call}_{key}_range'] = [min(values),
+                                                              max(values)]
         print('median', json.dumps(summary), flush=True)
 
 

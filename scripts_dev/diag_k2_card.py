@@ -12,9 +12,15 @@ its source timed in turns at the headline shape.
   switched off (the FFMAs, the cp.async staging, the weighting, the skip
   of zero chunks), each built by its own nvcc (all started together),
   its ptxas report printed, and timed with CUDA events in turns at F=513,
-  dim=240, D=24, T=2504.  A variant without a part computes garbage; only
-  its time is read.  ``--parent`` adds another source of the same C entry
-  (e.g. an earlier version of the kernel) to the turns.
+  dim=240, D=24, T=2504 and T=4191.  A variant without a part computes
+  garbage; only its time is read.  Two variants compute the same sums:
+  ``shared_flush`` keeps the float64 sums of the two-level T sum in shared
+  memory (64 KB a CTA, a thread's 64 doubles strided by the CTA's
+  threads) instead of registers, and ``shared_flush_4`` does so with
+  launch bounds of 4 CTAs an SM (at most 128 registers); their R and P
+  must be bit-identical to the kernel's.  Each variant's ptxas report and
+  resident CTAs an SM are printed.  ``--parent`` adds another source of
+  the same C entry (e.g. an earlier version of the kernel) to the turns.
 
 Needs one CUDA card; imports the port only, never JAX.
 """
@@ -47,7 +53,28 @@ PATCHES = {
                     'if (false) cp_async8(dst + 16 * m'), NO_SKIP],
     'no_weighting': [('    if (weights) {', '    if (false) {'), NO_SKIP],
     'no_skip': [NO_SKIP],
+    'shared_flush': [
+        ('(int)sizeof(float) * (2 * kRawFloats + kAFloats + 2 * kChunk);',
+         '(int)sizeof(float) * (2 * kRawFloats + kAFloats + 2 * kChunk) +\n'
+         '    64 * kThreads * (int)sizeof(double);'),
+        ('  float* sRaw = reinterpret_cast<float*>(smem4);',
+         '  double* sSum = reinterpret_cast<double*>(smem4) + threadIdx.x;\n'
+         '  float* sRaw = reinterpret_cast<float*>(smem4) + 2 * 64 * kThreads;'),
+        ('  double sre[4][8], sim[4][8];   // the spans\' float64 sums\n', ''),
+        ('      sre[i][j] = sim[i][j] = 0.0;',
+         '      sSum[(16 * i + 2 * j) * kThreads] = 0.0;\n'
+         '      sSum[(16 * i + 2 * j + 1) * kThreads] = 0.0;'),
+        ('        sre[i][j] += re[i][j];\n        sim[i][j] += im[i][j];',
+         '        sSum[(16 * i + 2 * j) * kThreads] += re[i][j];\n'
+         '        sSum[(16 * i + 2 * j + 1) * kThreads] += im[i][j];'),
+        ('make_float2((float)sre[i][j], (float)sim[i][j]);',
+         'make_float2((float)sSum[(16 * i + 2 * j) * kThreads],\n'
+         '                                   (float)sSum[(16 * i + 2 * j + 1) * kThreads]);'),
+    ],
 }
+PATCHES['shared_flush_4'] = PATCHES['shared_flush'] + [
+    ('constexpr int kMinBlocks = 2;', 'constexpr int kMinBlocks = 4;')]
+EXACT = ('shared_flush', 'shared_flush_4')   # the kernel's sums, bit for bit
 
 
 def tasks(dim, D):
@@ -124,8 +151,14 @@ def build_variants(parent):
             raise RuntimeError(f'nvcc failed for {name}:\n{log}')
         report = [line.split(':', 1)[-1].strip() for line in log.splitlines()
                   if 'registers' in line or 'spill' in line]
+        lib = ctypes.CDLL(str(OUT / f'lib{name}.so'))
+        smem, ctas = ctypes.c_int(), ctypes.c_int()
+        if hasattr(lib, 'pb_wpe_statistics_resources'):
+            lib.pb_wpe_statistics_resources(ctypes.byref(smem),
+                                            ctypes.byref(ctas))
+            report.append(f'{smem.value} B shared, {ctas.value} CTAs an SM')
         print(f'{name}: {report}', flush=True)
-        fn = ctypes.CDLL(str(OUT / f'lib{name}.so')).pb_wpe_statistics
+        fn = lib.pb_wpe_statistics
         fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
@@ -160,6 +193,7 @@ def main():
          '--format=csv,noheader'], capture_output=True, text=True).stdout,
         flush=True)
     F, T, D, _ = chip_smoke.HEADLINE
+    entries_fn = build_variants(args.parent)
     Yt, Y, w, valid = wpe_inputs(F, D, T, taps=chip_smoke.WPE_TAPS, seed=11,
                                  device='cuda')
     dim = Yt.shape[1]
@@ -172,22 +206,39 @@ def main():
           f'{flops / 1e9:.2f} GFLOP against {needed_all / 1e9:.2f} (all '
           f'frames, {flops / needed_all:.4f}x) and {needed_valid / 1e9:.2f} '
           f'(valid frames, {flops / needed_valid:.4f}x)', flush=True)
-    entries_fn = build_variants(args.parent)
-    calls = {name: caller(fn, Yt, Y, w) for name, fn in entries_fn.items()}
-    ref = wpe_stats.wpe_statistics_reference(Yt, Y, w)
-    for name in ('kernel', 'parent'):
-        if name in calls:
-            R, P = calls[name]()
-            print(f'{name} vs plain: rel_R, rel_P, max_abs '
-                  f'{stats_errors(R.clone(), P.clone(), *ref)}', flush=True)
-    del ref
-    t = chip_smoke.in_turns(torch, {n: (c, 3) for n, c in calls.items()})
-    for name, ms in t.items():
-        rate = (f' ({flops / ms / 1e9:.2f} TFLOP/s issued)'
-                if name == 'kernel' else '')
-        print(f'time {name}: {ms:.4f} ms{rate}', flush=True)
-    ms = chip_smoke.graph_ms(torch, calls['kernel'], 3)
-    print(f'kernel device time from a CUDA graph: {ms:.4f} ms', flush=True)
+    for frames in (T, 4191):
+        if frames != T:
+            del Yt, Y, w
+            Yt, Y, w, _ = wpe_inputs(F, D, frames, taps=chip_smoke.WPE_TAPS,
+                                     seed=11, device='cuda')
+        calls = {name: caller(fn, Yt, Y, w)
+                 for name, fn in entries_fn.items()}
+        ref = wpe_stats.wpe_statistics_reference(Yt, Y, w)
+        outputs = {}
+        for name in ('kernel', *EXACT, 'parent'):
+            if name in calls:
+                outputs[name] = [x.clone() for x in calls[name]()]
+                print(f'T = {frames}: {name} vs plain: rel_R, rel_P, max_abs '
+                      f'{stats_errors(*outputs[name], *ref)}', flush=True)
+        del ref
+        for name in EXACT:
+            same = all(torch.equal(a, b) for a, b in
+                       zip(outputs[name], outputs['kernel']))
+            print(f'T = {frames}: {name} bit-identical to the kernel: '
+                  f'{same}', flush=True)
+            if not same:
+                sys.exit(f'diag_k2_card: {name} differs from the kernel')
+        del outputs
+        t = chip_smoke.in_turns(torch, {n: (c, 3) for n, c in calls.items()})
+        for name, ms in t.items():
+            rate = (f' ({flops / ms / 1e9:.2f} TFLOP/s issued)'
+                    if name == 'kernel' and frames == T else '')
+            print(f'T = {frames}: time {name}: {ms:.4f} ms{rate}', flush=True)
+        if frames == T:
+            ms = chip_smoke.graph_ms(torch, calls['kernel'], 3)
+            print(f'kernel device time from a CUDA graph: {ms:.4f} ms',
+                  flush=True)
+        del calls
 
 
 if __name__ == '__main__':

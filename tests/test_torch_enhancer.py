@@ -317,6 +317,17 @@ def test_port_run_imports_no_jax():
             'test_run', 'with', 'session_id=S02', 'activity_type="path"',
             f'activity_path="{root}/cache/word_non_sil_alignment"', *small])
         assert len(list((exp.run_dir / 'audio' / 'dev').glob('*.wav'))) == 2
+        import importlib
+        import pkgutil
+        import pb_chime5_tpu_torch
+        for info in pkgutil.walk_packages(pb_chime5_tpu_torch.__path__,
+                                          'pb_chime5_tpu_torch.'):
+            importlib.import_module(info.name)     # every module of the port
+        for name in ('database.keys', 'database.lazy', 'database.helper',
+                     'database.iterator', 'database.get_speaker_activity',
+                     'io.wav', 'io.audio', 'io.json_io', 'math.solve',
+                     'utils.numpy_utils', 'visualization'):
+            assert f'pb_chime5_tpu_torch.{name}' in sys.modules, name
         loaded = sorted({m.split('.')[0] for m in sys.modules})
         assert 'jax' not in loaded and 'pb_chime5_tpu' not in loaded, loaded
         print('NO_JAX_OK')

@@ -356,3 +356,40 @@ def test_entry_points_without_card_raise(corpus, tmp_path, entry):
     }
     with pytest.raises(RuntimeError, match='cuda'):
         calls[entry]()
+
+
+def test_enhance_observation_matches_jax(corpus):
+    """``Enhancer.enhance_observation`` of the RTTM enhancers on one
+    example's observation: the activity and the target speaker taken from
+    the example (``None``) and given, against the JAX enhancer's (its
+    fused kernel EM in interpret mode), within 2e-2 of full scale; the
+    STFT properties equal."""
+    settings = dict(bss_iterations=2, context_samples=4000, wpe=False,
+                    length_buckets=(16000 * 4,))
+    enhancer = enhancer_rttm.get_enhancer(
+        database_rttm=str(corpus / 'dev.rttm'),
+        activity_rttm=str(corpus / 'dev.rttm'),
+        chime6_dir=str(corpus / 'CHiME6'), device='cpu', **settings)
+    jax_enhancer = jax_enhancer_rttm.Enhancer(
+        db=jax_enhancer_rttm.get_database(
+            corpus / 'CHiME6', str(corpus / 'dev.rttm'), 'outer_array_mics'),
+        activity=jax_enhancer_rttm.Activity(
+            garbage_class=True, rttm=str(corpus / 'dev.rttm')),
+        gss_config=JaxGssConfig(bss_iterations=2, wpe=False,
+                                bss_em_backend='pallas'),
+        context_samples=4000, length_buckets=(16000 * 4,))
+    for name in ('stft_size', 'stft_shift', 'stft_fading'):
+        assert getattr(enhancer, name) == getattr(jax_enhancer, name)
+    dataset = enhancer.get_dataset('S02')
+    ex = dataset[dataset.keys()[0]]
+    jax_ex = jax_enhancer.get_dataset('S02')[ex['example_id']]
+    np.testing.assert_array_equal(ex['audio_data'], jax_ex['audio_data'])
+    want = np.asarray(jax_enhancer.enhance_observation(
+        jax_ex['audio_data'], None, None, ex=jax_ex))
+    activity = enhancer._example_activity(ex, None)
+    for args in ((None, None), (activity, ex['speaker_id'])):
+        got = np.asarray(enhancer.enhance_observation(
+            ex['audio_data'], *args, ex=ex))
+        assert got.shape == want.shape == (ex['audio_data'].shape[-1],)
+        assert np.isfinite(got).all() and np.abs(got).max() > 0
+        np.testing.assert_allclose(got, want, atol=2e-2 * np.abs(want).max())
