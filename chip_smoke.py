@@ -8,7 +8,9 @@ Phases (the first failure ends the run with a non-zero exit code):
 1. device: a CUDA card is required; the TF32 pins are asserted;
 2. build: the four kernel libraries (``csrc/fused_em.cu``,
    ``csrc/wpe_stats.cu``, ``csrc/gj_inverse.cu``, ``csrc/chol_solve.cu``)
-   are compiled by concurrent nvcc processes; each kernel's registers and
+   are compiled by concurrent nvcc processes, beside the two host
+   libraries (``csrc/wav_ops.cpp``, ``csrc/interval_ops.cpp``) by the host
+   compiler; each kernel's registers and
    spills are printed, and K2's dynamic shared memory and CTAs per SM;
 3. kernels vs plain, at the shapes of the headline utterance, each timed
    with CUDA events in turns (plain, kernel, library call, and back)
@@ -169,7 +171,8 @@ Phases (the first failure ends the run with a non-zero exit code):
    byte-identical to the serial run, each job its
    ``length_balanced_shard`` share, the master's run id on both ranks);
    a fresh process's first utterance with and without
-   ``Enhancer.warmup`` (no build and no library load after it); P06 with
+   ``Enhancer.warmup`` (no build and no library load after it, the kernel
+   and host libraries all loaded by it); P06 with
    ``compile_mode='fast_start'`` bit-equal to the fused chain;
 13. the alignment-refined activity, the session soak, the dry run and the
    tooling: (a) a fake Kaldi alignment of phase 8's worn utterances (sil
@@ -213,7 +216,18 @@ Phases (the first failure ends the run with a non-zero exit code):
    (relative Frobenius per frequency, R hermitized), its equilibrated
    smallest eigenvalue plus the 1e-4 load positive at every frequency,
    and K2 within 1e-5 of its plain version; printed: the WPE window and
-   the statistics call at T = 4191, and P06's WPE windows of phase 5.
+   the statistics call at T = 4191, and P06's WPE windows of phase 5;
+15. the native host readers: both host libraries compiled anew from the
+   port's sources (seconds each); every utterance's observation span of
+   phase 8's session (each array's files over the utterance with its
+   context) read by the native reader and by the Python one (gated: the
+   same dtype, shape and bytes), then timed in turns (native, Python,
+   Python, native: ms an utterance, MB/s); the session's activity
+   ``ArrayInterval``s (the annotations, and boolean spans with sil over
+   each utterance's first and last tenth), each utterance's slices of
+   them and their pickles, built with the native interval ops and with
+   the Python ones (gated: equal), in turns, each op's calls and µs a
+   call printed.
 
 Before each path's run every kernel's launch count is set to 0, and it is
 read right after.  It imports the port (``pb_chime5_tpu_torch``) and the
@@ -221,7 +235,9 @@ kernel tests' input makers, never JAX or the JAX package
 ``pb_chime5_tpu``, and checks that nothing it ran imported either.
 
 The last three lines of standard output are the card's name and power
-limit, the kernels' JSON record and ``{"ok": true, "device": {...}}``.
+limit, the kernels' JSON record and ``{"ok": true, "device": {...}}``;
+the line before them is phase 15's record of the host libraries
+(``{"host_libraries": [...]}``: they are not TPU kernels).
 The record has one row per TPU kernel, with its launches on each path
 (``launches_per_path``: default, all-Pallas, CHiME-6 tracks 1 and 2, the
 'xla' EM, float64, the mesh, the alignment-refined activity, the serial
@@ -269,6 +285,7 @@ WPE_ITERATIONS = 3
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 FP32_FLOP_PER_S = 67e12       # H100 SXM data sheet, CUDA cores
 LIBRARIES = ('fused_em', 'wpe_stats', 'gj_inverse', 'chol_solve')
+HOST_LIBRARIES = ('wav_ops', 'interval_ops')
 
 
 START = time.perf_counter()
@@ -2386,6 +2403,7 @@ if sys.argv[4] == 'warm':
 torch.cuda.synchronize()
 warmup_s = time.perf_counter() - start
 before = dict(_build.stats)
+libraries = sorted(_build._libraries)
 start = time.perf_counter()
 enhancer.enhance_session(['S02'], sys.argv[3], dataset_slice=1,
                          audio_dir_exist_ok=True)
@@ -2394,6 +2412,7 @@ loaded = {name.split('.')[0] for name in sys.modules}
 print('WARMUP_PROBE', json.dumps({
     'warmup_s': warmup_s, 'first_utterance_s': first_s,
     'builds_loads_before': before, 'builds_loads_after': dict(_build.stats),
+    'libraries_before': libraries,
     'imported_jax': bool(loaded & {'jax', 'pb_chime5_tpu'})}), flush=True)
 '''
 
@@ -2868,6 +2887,8 @@ def parallel_processes(torch, work, examples):
     check(warm['builds_loads_after'] == warm['builds_loads_before']
           and not warm['imported_jax'],
           f'a build or library load after warmup: {warm}')
+    check(set(LIBRARIES + HOST_LIBRARIES) <= set(warm['libraries_before']),
+          f'warmup left a kernel or host library unloaded: {warm}')
     check(same_wavs(root / 'first_cold', root / 'first_warm'),
           'the warmed first utterance differs from the cold one')
     print(f'first utterance of a fresh process: '
@@ -3320,6 +3341,184 @@ def stress_wpe_path(torch, counts, wpe_stats, p06_wpe_ms):
     return launches
 
 
+# phase 15: the native host readers
+HOST_TURNS = ('native', 'Python', 'Python', 'native')
+INTERVAL_OPS = ('_intersection', '_non_intersection', '_normalize',
+                '_str_to_intervals')
+
+
+def host_builds(_build, out):
+    """Each host library compiled anew from the port's source into
+    ``out``, one after the other -> {name: seconds}."""
+    import ctypes
+    out.mkdir(parents=True)
+    seconds = {}
+    for name in HOST_LIBRARIES:
+        lib = out / f'lib{name}.so'
+        start = time.perf_counter()
+        proc = subprocess.run(_build.compile_command(name, lib),
+                              capture_output=True, text=True, timeout=300)
+        seconds[name] = time.perf_counter() - start
+        check(proc.returncode == 0,
+              f'{name}: the host build failed:\n{proc.stdout}{proc.stderr}')
+        ctypes.CDLL(str(lib))
+        print(f'host build of csrc/{name}.cpp: {seconds[name]:.3f} s',
+              flush=True)
+    return seconds
+
+
+def read_turns(audio, reads):
+    """Both read routes over every utterance's span: gated byte for byte,
+    then timed in turns -> {route: [seconds of each pass]}, bytes a
+    pass."""
+    routes = {'native': audio._read, 'Python': audio._py_read}
+    nbytes = 0
+    for spans in reads:
+        for path, s, e in spans:
+            (a, rate_a), (b, rate_b) = (routes[r](path, s, e)
+                                        for r in ('native', 'Python'))
+            check(a.dtype == b.dtype and a.shape == b.shape
+                  and a.tobytes() == b.tobytes() and rate_a == rate_b,
+                  f'{path} [{s}, {e}): the native read differs from the '
+                  f'Python read')
+            nbytes += a.nbytes
+    seconds = {route: [] for route in routes}
+    for route in HOST_TURNS:
+        start = time.perf_counter()
+        for spans in reads:
+            for path, s, e in spans:
+                routes[route](path, s, e)
+        seconds[route].append(time.perf_counter() - start)
+    return seconds, nbytes
+
+
+def activity_by_route(ai_module, db, examples, route):
+    """The session's activity as the enhancer builds it (annotations, and
+    alignment-style boolean spans: sil over each utterance's first and
+    last tenth), each utterance's slices and the tracks' pickles, with
+    ``utils/array_interval.py``'s ops on ``route`` -> (results, {op:
+    [calls, seconds]}, wall)."""
+    import pickle
+    import numpy as np
+    from pb_chime5_tpu_torch.activity import get_activity
+    from pb_chime5_tpu_torch.database.chime5 import Chime5
+
+    def aligned(ex, mic):
+        n = ex['end']['observation'][mic] - ex['start']['observation'][mic]
+        mask = np.ones(n, bool)
+        mask[:n // 10] = mask[n - n // 10:] = False
+        return mask
+    spent = {op: [0, 0.0] for op in INTERVAL_OPS}
+
+    def timed(op, fn):
+        def call(*args):
+            start = time.perf_counter()
+            try:
+                return fn(*args)
+            finally:
+                spent[op][0] += 1
+                spent[op][1] += time.perf_counter() - start
+        return call
+    saved = {op: getattr(ai_module, op) for op in INTERVAL_OPS}
+    results = {}
+    try:
+        for op in INTERVAL_OPS:
+            setattr(ai_module, op, timed(op, saved[op] if route == 'native'
+                                         else getattr(ai_module, f'_py{op}')))
+        start = time.perf_counter()
+        for label, fn in (('annotation', None), ('aligned', aligned)):
+            activity = get_activity(
+                Chime5(db).get_datasets('S02'), perspective='array',
+                garbage_class=True, non_sil_alignment_fn=fn)['S02']
+            tracks = {(a, k): t for a, per in activity.items()
+                      for k, t in per.items()}
+            slices = []
+            for ex in examples:
+                ref = ex['reference_array']
+                s, e = ex['start']['observation'][ref], \
+                    ex['end']['observation'][ref]
+                slices += [t[s:min(e, len(t))]
+                           for t in activity[ref].values()]
+            reloaded = {key: pickle.loads(pickle.dumps(t))
+                        for key, t in tracks.items()}
+            results[label] = (
+                {key: t.intervals for key, t in tracks.items()}, slices,
+                {key: t.intervals for key, t in reloaded.items()})
+        wall = time.perf_counter() - start
+    finally:
+        for op, fn in saved.items():
+            setattr(ai_module, op, fn)
+    return results, spent, wall
+
+
+def same_activity(a, b):
+    """Two routes' ``activity_by_route`` results hold the same tracks,
+    slices and reloaded pickles."""
+    import numpy as np
+    return a.keys() == b.keys() and all(
+        a[k][0] == b[k][0] == a[k][2] == b[k][2]
+        and len(a[k][1]) == len(b[k][1])
+        and all(np.array_equal(x, y) for x, y in zip(a[k][1], b[k][1]))
+        for k in a)
+
+
+def host_readers_path(db, work):
+    """Phase 15; returns the host libraries' JSON record."""
+    from pb_chime5_tpu_torch.io import audio
+    from pb_chime5_tpu_torch.models.enhancer import get_enhancer
+    from pb_chime5_tpu_torch.ops.kernels import _build
+    from pb_chime5_tpu_torch.utils import array_interval
+    build_s = host_builds(_build, work / 'host_build')
+    _build.load_libraries(HOST_LIBRARIES)    # loaded in phase 2 already
+    enhancer = get_enhancer(multiarray=True, database_path=str(db),
+                            device='cuda')
+    examples = list(enhancer.get_iterator('S02'))
+    # every utterance's observation span as the session reads it
+    reads = [[(path, s, e) for paths, s, e, _sel in enhancer._cache_spans(
+        ex, ex['reference_array']) for path in paths] for ex in examples]
+    seconds, nbytes = read_turns(audio, reads)
+    n, files = len(reads), sum(len(spans) for spans in reads)
+    read = {}
+    for route, passes in seconds.items():
+        read[route] = {'pass_s': passes,
+                       'ms_per_utterance': statistics.mean(passes) / n * 1e3,
+                       'mb_per_s': nbytes / statistics.mean(passes) / 1e6}
+        print(f'observation reads ({route}): {n} utterances, {files} file '
+              f'spans, {nbytes / 1e6:.2f} MB a pass; '
+              f'{json.dumps(read[route])}', flush=True)
+    ratio = statistics.mean(seconds['native']) / statistics.mean(
+        seconds['Python'])
+    print(f'native / Python read time: {ratio:.4f}', flush=True)
+
+    runs = {route: [] for route in ('native', 'Python')}
+    for route in HOST_TURNS:
+        runs[route].append(activity_by_route(array_interval, db, examples,
+                                             route))
+    check(same_activity(runs['native'][0][0], runs['Python'][0][0]),
+          'the native interval ops built another activity than the Python '
+          'ones')
+    ops = {}
+    for route, passes in runs.items():
+        ops[route] = {op: {
+            'calls': passes[0][1][op][0],
+            'us_per_call': statistics.mean(
+                p[1][op][1] / max(p[1][op][0], 1) for p in passes) * 1e6}
+            for op in INTERVAL_OPS}
+        print(f'interval ops ({route}): walls {[p[2] for p in passes]} s; '
+              f'{json.dumps(ops[route])}', flush=True)
+    check(not imported_jax(), 'the run imported jax or the JAX package')
+    return [
+        {'name': 'wav_ops', 'source': 'pb_chime5_tpu_torch/csrc/wav_ops.cpp',
+         'replaces': 'cpp/wav_ops.cpp', 'build_s': build_s['wav_ops'],
+         'reads': read, 'bytes_per_pass': nbytes},
+        {'name': 'interval_ops',
+         'source': 'pb_chime5_tpu_torch/csrc/interval_ops.cpp',
+         'replaces': 'cpp/interval_ops.cpp',
+         'build_s': build_s['interval_ops'], 'ops': ops,
+         'activity_wall_s': {route: [p[2] for p in passes]
+                             for route, passes in runs.items()}}]
+
+
 class LaunchCounts:
     """The launch counters of every kernel entry of the port."""
 
@@ -3346,8 +3545,8 @@ def build(_build):
     """Phase 2: one nvcc per source, all started together."""
     import ctypes
     start = time.perf_counter()
-    _build.load_libraries(LIBRARIES)
-    print(f'build + load of {", ".join(LIBRARIES)}: '
+    _build.load_libraries(LIBRARIES + HOST_LIBRARIES)
+    print(f'build + load of {", ".join(LIBRARIES + HOST_LIBRARIES)}: '
           f'{time.perf_counter() - start:.3f} s', flush=True)
     smem, ctas = ctypes.c_int(), ctypes.c_int()
     resources = _build.kernel_entry('wpe_stats', 'pb_wpe_statistics_resources',
@@ -3455,6 +3654,9 @@ def main():
               'T = 4191): the default route and K2')
         stress_launches = stress_wpe_path(torch, counts, wpe_stats,
                                           p06_wpe_ms)
+        phase('15 the native host readers: segmented WAV reads and the '
+              'interval algebra, native and Python')
+        host_libraries = host_readers_path(session[0], work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -3534,6 +3736,7 @@ def main():
                     default_launches['hermitian_solve_pallas'], 'none')}),
     ]
     phase('done')
+    print(json.dumps({'host_libraries': host_libraries}), flush=True)
     print(card, flush=True)
     print(json.dumps({'kernels': kernels}), flush=True)
     print(json.dumps({'ok': True, 'device': {

@@ -12,28 +12,125 @@ audiowrite.py:16-207):
   +1.0 never occurs), writes int16 by default, and supports incremental
   writes at a ``start`` offset into an existing file.
 
-The byte-level work is done by the pure-Python RIFF parser in
-``pb_chime5_tpu_torch.io.wav`` (the JAX package's native reader,
-``cpp/wav_ops.cpp``, is not built for the port).
+The byte-level work is done by the native library ``csrc/wav_ops.cpp``
+(built with the host compiler at first use, ``ops/kernels/_build.py``;
+one foreign call a read, which opens the file once and releases the
+GIL), as the JAX package's ``_wav_ops`` does where it is built.
+Incremental writes, ``audio_length`` and ``audio_channels`` use the
+Python RIFF parser in ``pb_chime5_tpu_torch.io.wav``;
+``_py_read`` is the Python route of a read, the plain version the tests
+hold the native one to.
 
 The port's copy of ``pb_chime5_tpu/io/audio.py``.
 """
 
+import ctypes
+import os
 from pathlib import Path
 
 import numpy as np
 
 from pb_chime5_tpu_torch.io import wav as _pywav
+from pb_chime5_tpu_torch.ops.kernels import _build
+
+# the port builds its native reader from its own source: always there
+HAVE_NATIVE = True
 
 __all__ = ['load_audio', 'dump_audio', 'audioread', 'audio_length',
-           'audio_channels']
+           'audio_channels', 'HAVE_NATIVE']
 
 _PCM_SCALE = {np.dtype(np.int16): 2.0 ** 15, np.dtype(np.int32): 2.0 ** 31}
 
 
+_DTYPE_FROM_FMT = {
+    (1, 16): np.int16, (1, 32): np.int32,
+    (3, 32): np.float32, (3, 64): np.float64,
+}
+_FMT_FROM_DTYPE = {np.dtype(t): fb for fb, t in _DTYPE_FROM_FMT.items()}
+
+_P = ctypes.c_void_p
+_I64 = ctypes.c_int64
+_ERR = (ctypes.c_char_p, _I64)
+# the read's allocator: nbytes -> the address of a buffer that outlives it
+_ALLOC = ctypes.CFUNCTYPE(_P, _I64)
+_READ = ('wav_ops', 'pb_wav_read', (ctypes.c_char_p, _I64, _I64, _ALLOC, _P,
+                                    *_ERR))
+_WRITE = ('wav_ops', 'pb_wav_write', (ctypes.c_char_p, _P, _I64,
+                                      ctypes.c_int32, ctypes.c_int32,
+                                      ctypes.c_int32, _I64, *_ERR))
+
+
+def _c_path(path):
+    raw = os.fsencode(str(path))
+    if b'\0' in raw:
+        raise ValueError('embedded null character')
+    return raw
+
+
+def _check(code, path, err):
+    """Raise what the native entry's return ``code`` stands for: an errno
+    (> 0) as ``OSError`` with the path, else its message in ``err``."""
+    if code > 0:
+        raise OSError(code, os.strerror(code), str(path))
+    if code < 0:
+        message = err.value.decode(errors='replace')
+        raise (ValueError if code == -1 else OSError)(message)
+
+
+def _native_read(path, start, stop):
+    """Frames [start, stop) (``stop`` None or negative: to the end) by the
+    native library: (array, sample_rate), as the JAX package's native
+    route returns them.  One foreign call opens and parses the file once
+    and asks ``alloc`` for the buffer the frames go to."""
+    raw_path = _c_path(path)
+    err = ctypes.create_string_buffer(len(raw_path) + 128)
+    header = (_I64 * 5)()
+    buffers = []
+
+    def alloc(nbytes):
+        try:
+            buffers.append(np.empty(nbytes, np.uint8))
+        except BaseException as e:      # raised again after the call
+            buffers.append(e)
+            return None
+        return buffers[0].ctypes.data
+
+    code = _build.kernel_entry(*_READ)(
+        raw_path, int(start), -1 if stop is None else int(stop),
+        _ALLOC(alloc), header, err, len(err))
+    if buffers and isinstance(buffers[0], BaseException):
+        raise buffers[0]
+    _check(code, path, err)
+    channels, bits, fmt, rate, got = header
+    data = buffers[0][:got].view(_DTYPE_FROM_FMT[(fmt, bits)]).reshape(
+        -1, channels)
+    if channels == 1:
+        data = data[:, 0]
+    return data, rate
+
+
+def _native_write(path, data, sample_rate):
+    """``data`` ((frames,) or (frames, channels), a dtype of
+    ``_FMT_FROM_DTYPE``) as a canonical WAV by the native library."""
+    fmt, bits = _FMT_FROM_DTYPE[data.dtype]
+    data = np.ascontiguousarray(data)
+    channels = 1 if data.ndim == 1 else data.shape[1]
+    raw_path = _c_path(path)
+    err = ctypes.create_string_buffer(len(raw_path) + 128)
+    _check(_build.kernel_entry(*_WRITE)(
+        raw_path, data.ctypes.data, data.nbytes, channels, bits, fmt,
+        int(sample_rate), err, len(err)), path, err)
+
+
+def _py_read(path, start, stop):
+    """The Python route of :func:`_read`'s read (``io/wav.py``)."""
+    return _pywav.read_wav(path, start, stop)
+
+
 def _read(path, start, stop):
+    _build.load_library('wav_ops')      # a failed build raises as itself
     try:
-        return _pywav.read_wav(path, start, stop)
+        return _native_read(path, start, stop)
     except (ValueError, RuntimeError, EOFError) as e:
         _raise_legacy_read_error(path, e)
 
@@ -186,4 +283,7 @@ def dump_audio(
     # host convention is (channels, samples); files store (frames, channels)
     data = out.T if out.ndim == 2 else out
 
+    if start is None and data.dtype in _FMT_FROM_DTYPE:
+        _native_write(path, data, sample_rate)
+        return
     _pywav.write_wav(path, data, sample_rate, start=start)

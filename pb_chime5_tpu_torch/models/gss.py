@@ -22,8 +22,8 @@ launch.  :func:`enhance_spectrogram` is the frequency-domain middle on any
 shard of the frequency axis; ``parallel/mesh.py`` drives both over a
 (data, freq) grid of devices.  A batch of one gives the unbatched chain's
 numbers bit for bit.  :meth:`GssPipeline.warmup` and
-:meth:`GssPipeline.warmup_mesh` build and load the kernel libraries and
-make one dispatch per length bucket ahead of a session.
+:meth:`GssPipeline.warmup_mesh` build and load the kernel and host
+libraries and make one dispatch per length bucket ahead of a session.
 """
 
 import contextlib
@@ -747,25 +747,27 @@ class GssPipeline:
 
     @staticmethod
     def _load_kernels(devices):
-        """Build (if needed) and load every kernel library, once, when a
-        device is a card."""
+        """Build (if needed) and load the host readers' libraries, and
+        every kernel library when a device is a card; once."""
+        from pb_chime5_tpu_torch.ops.kernels import _build
+        names = _build.HOST_LIBRARIES
         if any(torch.device(d).type == 'cuda' for d in devices):
-            from pb_chime5_tpu_torch.ops.kernels import _build
-            _build.load_libraries(_build.LIBRARIES)
+            names += _build.LIBRARIES
+        _build.load_libraries(names)
 
     def warmup(self, num_channels, num_classes, *, dtype=None, lengths=None,
                parallel=True, cache_window_samples=None, num_arrays=None,
                cache_lengths=None, trim_buckets=None):
         """Ready the card for a session ahead of its first utterance: build
-        and load the kernel libraries, then one dispatch of a noise
+        and load the kernel and host libraries, then one dispatch of a noise
         observation at (``num_channels``, ``num_classes``, ``dtype``) per
         length bucket of ``lengths`` (default: every bucket), per output
         trim of ``trim_buckets`` ((bucket, output samples) pairs), and with
         ``cache_window_samples`` (and ``num_arrays``) the same through the
         session-audio window for ``cache_lengths`` (default: ``lengths``);
-        then wait for them.  Afterwards the session's dispatches start no
-        nvcc build and load no library (``ops/kernels/_build.stats``), and
-        cuFFT's plans and the allocator's blocks of these shapes exist.
+        then wait for them.  Afterwards the session's dispatches and reads
+        start no build and load no library (``ops/kernels/_build.stats``),
+        and cuFFT's plans and the allocator's blocks of these shapes exist.
         The JAX package compiles these programs ahead of time; an eager
         chain compiles nothing, so it runs them.  ``parallel``: enqueue
         every dispatch before waiting (else wait for each in turn)."""

@@ -5,57 +5,155 @@ pb_chime5/utils/intervall_array.py:103-455).
 A 2.5 h session's activity track costs O(#intervals), not O(#samples):
 slice get and set (scalar or boolean array values), construction from a
 dense array, an interval string or an RTTM file, and pickling through the
-compact string form.  The intervals are kept normalized (sorted, disjoint,
-non-touching) after every edit.
+compact string form.  An edit appends or cuts; the intervals are
+normalized (sorted, disjoint, non-touching) at the first read after it,
+as the JAX package's are.
+
+The interval algebra (intersection, subtraction, normalization, parsing)
+runs in the native library ``csrc/interval_ops.cpp`` (built with the host
+compiler at first use, ``ops/kernels/_build.py``), as the JAX package's
+runs in its ``_interval_ops`` where it is built; the ``_py_*`` functions
+are the plain versions the tests hold it to.
 """
 
+import ctypes
 import decimal
+import itertools
 from pathlib import Path
 
 import numpy as np
 
+from pb_chime5_tpu_torch.ops.kernels import _build
+
+# the port builds its native algebra from its own source: always there
+HAVE_NATIVE = True
+
 __all__ = ['ArrayInterval', 'array_interval_from_str',
-           'array_intervals_from_rttm']
+           'array_intervals_from_rttm', 'HAVE_NATIVE']
 
 
-def _subtract(intervals, start, stop):
-    """``intervals`` with [start, stop) removed (half-open)."""
-    kept = []
-    for s, e in intervals:
-        if e <= start or s >= stop:
-            kept.append((s, e))
+# --------------------------------------------------------------------------
+# interval algebra: the plain versions (the native library mirrors these)
+# --------------------------------------------------------------------------
+
+def _py_intersection(interval, intervals):
+    start, end = interval
+    out = []
+    for i_start, i_end in intervals:
+        s = max(start, i_start)
+        e = min(end, i_end)
+        if s < e:
+            out.append((s, e))
+    return tuple(out)
+
+
+def _py_non_intersection(interval, intervals):
+    """Half-open set subtraction: remove [start, end) from every
+    interval."""
+    start, end = interval
+    out = []
+    for i_start, i_end in intervals:
+        if i_end <= start or i_start >= end:      # disjoint
+            out.append((i_start, i_end))
             continue
-        if s < start:
-            kept.append((s, start))
-        if e > stop:
-            kept.append((stop, e))
-    return kept
+        if i_start < start:                        # left remainder
+            out.append((i_start, start))
+        if i_end > end:                            # right remainder
+            out.append((end, i_end))
+    return tuple(out)
 
 
-def _normalize(intervals):
+def _py_normalize(intervals):
     """Sort, drop empties, merge touching or overlapping intervals."""
-    merged = []
-    for s, e in sorted(iv for iv in intervals if iv[0] < iv[1]):
-        if merged and s <= merged[-1][1]:
-            merged[-1] = (merged[-1][0], max(merged[-1][1], e))
+    ivs = sorted((s, e) for s, e in intervals if s < e)
+    out = []
+    for s, e in ivs:
+        if out and s <= out[-1][1]:
+            out[-1] = (out[-1][0], max(out[-1][1], e))
         else:
-            merged.append((s, e))
-    return merged
+            out.append((s, e))
+    return tuple(out)
 
 
-def _str_to_intervals(string):
+def _py_str_to_intervals(string):
     out = []
     for part in string.replace(' ', '').strip(',').split(','):
         s, e = part.split(':')
         out.append((int(s), int(e)))
-    return out
+    return tuple(out)
+
+
+# --------------------------------------------------------------------------
+# interval algebra: the native library (flat int64 buffers of n pairs)
+# --------------------------------------------------------------------------
+
+_I64, _P = ctypes.c_int64, ctypes.c_void_p
+
+
+def _entry(name, argtypes):
+    return _build.kernel_entry('interval_ops', name, argtypes, _I64)
+
+
+def _pairs(intervals):
+    """``intervals`` as a flat int64 buffer of (start, stop) pairs."""
+    flat = np.fromiter(itertools.chain.from_iterable(intervals), np.int64)
+    if len(flat) != 2 * len(intervals):
+        raise ValueError('interval must have exactly 2 items')
+    return flat
+
+
+def _tuples(out, n):
+    """The first ``n`` pairs of ``out`` as a tuple of (start, stop)."""
+    flat = iter(out[:2 * n].tolist())
+    return tuple(zip(flat, flat))
+
+
+def _clip(name, interval, intervals, rows):
+    """``name`` (intersection or subtraction) of ``interval`` with
+    ``intervals``, into ``rows`` x the input's pairs."""
+    ivs = _pairs(intervals)
+    out = np.empty(rows * len(ivs), np.int64)
+    n = _entry(name, (_I64, _I64, _P, _I64, _P))(
+        int(interval[0]), int(interval[1]), ivs.ctypes.data, len(ivs) // 2,
+        out.ctypes.data)
+    return _tuples(out, n)
+
+
+def _intersection(interval, intervals):
+    return _clip('pb_intersection', interval, intervals, 1)
+
+
+def _non_intersection(interval, intervals):
+    return _clip('pb_non_intersection', interval, intervals, 2)
+
+
+def _normalize(intervals):
+    ivs = _pairs(intervals)
+    out = np.empty_like(ivs)
+    n = _entry('pb_normalize', (_P, _I64, _P))(
+        ivs.ctypes.data, len(ivs) // 2, out.ctypes.data)
+    return _tuples(out, n)
+
+
+def _str_to_intervals(string):
+    text = string.encode()
+    if b'\0' in text:
+        raise ValueError('embedded null character')
+    out = np.empty(2 * (text.count(b',') + 1), np.int64)
+    err = ctypes.create_string_buffer(len(text) + 64)
+    n = _entry('pb_str_to_intervals', (ctypes.c_char_p, _P, _I64,
+                                       ctypes.c_char_p, _I64))(
+        text, out.ctypes.data, len(out) // 2, err, len(err))
+    if n < 0:
+        raise ValueError(err.value.decode(errors='replace'))
+    return _tuples(out, n)
 
 
 def array_interval_from_str(string, shape):
     """'1:4, 5:20' -> ArrayInterval (the inverse of its string form)."""
     ai = ArrayInterval(shape)
     if string:
-        ai._intervals = _normalize(_str_to_intervals(string))
+        ai._set(_str_to_intervals(string))
     return ai
 
 
@@ -74,7 +172,8 @@ class ArrayInterval:
             shape = tuple(int(s) for s in shape)
             assert len(shape) == 1, shape
         self.shape = shape
-        self._intervals = []            # sorted, disjoint, non-touching
+        self._intervals = ()
+        self._normalized = True         # sorted, disjoint, non-touching
 
     @staticmethod
     def from_array(array):
@@ -83,7 +182,7 @@ class ArrayInterval:
         assert array.ndim == 1, array.ndim
         assert array.dtype == bool, array.dtype
         ai = ArrayInterval(array.shape)
-        ai._intervals = _runs(array)
+        ai._intervals = _runs(array)    # normalized as they come
         return ai
 
     def __reduce__(self):
@@ -100,7 +199,7 @@ class ArrayInterval:
         if not isinstance(other, ArrayInterval):
             return NotImplemented
         return (self.shape == other.shape
-                and self._intervals == other._intervals)
+                and self.intervals == other.intervals)
 
     def __repr__(self):
         return (f'{type(self).__name__}("{self._intervals_as_str}", '
@@ -108,13 +207,23 @@ class ArrayInterval:
 
     @property
     def intervals(self):
-        return tuple(self._intervals)
+        if not self._normalized:
+            self._intervals = _normalize(self._intervals)
+            self._normalized = True
+        return self._intervals
 
     normalized_intervals = intervals
 
+    def _set(self, intervals):
+        """Edits append or cut and leave the merge to the next read, as
+        the JAX package's ``ArrayInterval`` does: a run of ``[s:e] = 1``
+        costs no foreign call."""
+        self._intervals = intervals
+        self._normalized = False
+
     @property
     def _intervals_as_str(self):
-        return ', '.join(f'{s}:{e}' for s, e in self._intervals)
+        return ', '.join(f'{s}:{e}' for s, e in self.intervals)
 
     def _bounds(self, item):
         assert isinstance(item, slice) and item.step is None, item
@@ -131,8 +240,7 @@ class ArrayInterval:
         return start, stop
 
     def add_intervals_from_str(self, string):
-        self._intervals = _normalize(self._intervals
-                                     + _str_to_intervals(string))
+        self._set(self._intervals + _str_to_intervals(string))
 
     def add_intervals(self, slices):
         """Set each slice of ``slices`` to True."""
@@ -141,29 +249,28 @@ class ArrayInterval:
 
     def __setitem__(self, item, value):
         start, stop = self._bounds(item)
-        kept = _subtract(self._intervals, start, stop)
         if isinstance(value, (tuple, list, np.ndarray)):
             value = np.asarray(value, dtype=bool)
             assert len(value) == stop - start, (start, stop, len(value))
-            kept += [(s + start, e + start) for s, e in _runs(value)]
+            self._set(_non_intersection((start, stop), self.intervals)
+                      + tuple((s + start, e + start) for s, e in _runs(value)))
         elif np.isscalar(value) and value in (1, True):
-            kept.append((start, stop))
-        elif not (np.isscalar(value) and value in (0, False)):
+            self._set(self._intervals + ((start, stop),))
+        elif np.isscalar(value) and value in (0, False):
+            self._set(_non_intersection((start, stop), self.intervals))
+        else:
             raise NotImplementedError(value)
-        self._intervals = _normalize(kept)
 
     def __getitem__(self, item):
         start, stop = self._bounds(item)
         out = np.zeros(max(stop - start, 0), bool)
-        for s, e in self._intervals:
-            s, e = max(s, start), min(e, stop)
-            if s < e:
-                out[s - start:e - start] = True
+        for s, e in _intersection((start, stop), self.intervals):
+            out[s - start:e - start] = True
         return out
 
     def sum(self):
         """The number of True samples, in O(#intervals)."""
-        return sum(e - s for s, e in self._intervals)
+        return sum(e - s for s, e in self.intervals)
 
 
 def _runs(array):
@@ -175,7 +282,7 @@ def _runs(array):
         rising = [0] + rising
     if len(array) and array[-1]:
         falling = falling + [len(array)]
-    return list(zip(rising, falling))
+    return tuple(zip(rising, falling))
 
 
 def array_intervals_from_rttm(rttm_file, shape=None, sample_rate=16000):

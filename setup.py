@@ -1,9 +1,10 @@
 """Build for pb_chime5_tpu.
 
 Two packages: ``pb_chime5_tpu`` (JAX, the reference) and
-``pb_chime5_tpu_torch`` (its PyTorch / CUDA port, whose CUDA sources under
-``pb_chime5_tpu_torch/csrc/`` ship as package data and are compiled with
-nvcc at first use; it carries its own copy of the corpus tables).
+``pb_chime5_tpu_torch`` (its PyTorch / CUDA port, whose CUDA and C++
+sources under ``pb_chime5_tpu_torch/csrc/`` ship as package data and are
+compiled at first use, with nvcc and the host compiler; it carries its own
+copy of the corpus tables).
 
 Native pieces (optional — everything has a pure-Python fallback):
   * pb_chime5_tpu.utils._interval_ops  — interval algebra (C++)
@@ -36,7 +37,8 @@ setup(
                 '(CHiME-5/6 GSS)',
     packages=find_packages(include=['pb_chime5_tpu*']),
     package_data={'pb_chime5_tpu': ['data/*.json'],
-                  'pb_chime5_tpu_torch': ['csrc/*.cu', 'data/*.json']},
+                  'pb_chime5_tpu_torch': ['csrc/*.cu', 'csrc/*.cpp',
+                                          'data/*.json']},
     ext_modules=extensions,
     python_requires='>=3.10',
 )

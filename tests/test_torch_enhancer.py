@@ -328,6 +328,9 @@ def test_port_run_imports_no_jax():
                      'io.wav', 'io.audio', 'io.json_io', 'math.solve',
                      'utils.numpy_utils', 'visualization'):
             assert f'pb_chime5_tpu_torch.{name}' in sys.modules, name
+        from pb_chime5_tpu_torch.ops.kernels import _build
+        # the host readers ran natively in this process (reads, activity)
+        assert set(_build.HOST_LIBRARIES) <= set(_build._libraries)
         loaded = sorted({m.split('.')[0] for m in sys.modules})
         assert 'jax' not in loaded and 'pb_chime5_tpu' not in loaded, loaded
         print('NO_JAX_OK')

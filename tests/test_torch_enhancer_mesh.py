@@ -10,8 +10,8 @@ device agrees to 1e-3.  There is no twin of
 ``test_mesh_dispatch_reuses_traced_executable``: an eager chain traces
 nothing.  "No new compile" after warmup reads, in the port, as no nvcc
 build and no library load (``ops/kernels/_build.stats``): on the CPU no
-kernel library is ever built, so the twin also checks that warmup ran the
-session's batches.
+kernel library is ever built (warmup loads only the host readers'), so the
+twin also checks that warmup ran the session's batches.
 """
 
 import numpy as np

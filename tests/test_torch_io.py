@@ -3,8 +3,12 @@ package's helpers) against the JAX package's, the twins of the 18 tests
 of tests/test_io.py: each scenario runs through both packages on the
 same seeded inputs, and the files written, the arrays read and the
 errors raised must be the same.  ``test_python_and_native_readers_agree``
-becomes the port's reader against the JAX package's (the port builds no
-native reader).  Exact host computations: compared exactly.
+becomes the port's reader against the JAX package's.  The port reads
+through its native library (``csrc/wav_ops.cpp``); where the JAX package
+runs its Python parser (its ``_wav_ops`` not built), an error's text is
+compared on the port's Python route, and the two native readers are held
+to each other in ``tests/test_torch_native.py``.  Exact host
+computations: compared exactly.
 """
 
 import struct
@@ -218,8 +222,15 @@ def raised(fn):
     raise AssertionError('no error raised')
 
 
-def same_error(path, expected, match):
+def same_error(path, expected, match, monkeypatch):
+    """The port's reader raises ``expected`` with ``match`` in its text,
+    and on the route the JAX package's reader takes (native where its
+    extension is built, else Python) the same type and text as JAX's."""
     got = raised(lambda: port_io.load_audio(path))
+    assert got[0] is expected and match in got[1]
+    if not jax_audio.HAVE_NATIVE:
+        monkeypatch.setattr(port_audio, '_native_read', port_audio._py_read)
+        got = raised(lambda: port_io.load_audio(path))
     want = raised(lambda: jax_io.load_audio(path))
     assert got[0] is want[0] is expected
     assert match in got[1] and got[1] == want[1]
@@ -233,10 +244,10 @@ def test_nist_sphere_diagnostic(tmp_path):
     assert raised(lambda: jax_io.load_audio(sph))[0] is RuntimeError
 
 
-def test_wrong_suffix_diagnostic(tmp_path):
+def test_wrong_suffix_diagnostic(tmp_path, monkeypatch):
     bad = tmp_path / 'fake.flac'
     bad.write_bytes(b'fLaC....')
-    same_error(bad, RuntimeError, 'Wrong suffix .flac')
+    same_error(bad, RuntimeError, 'Wrong suffix .flac', monkeypatch)
 
 
 def test_legacy_audioread(tmp_path):
@@ -253,16 +264,16 @@ def test_legacy_audioread(tmp_path):
         port_audio.audioread(paths['port'], expected_sample_rate=8000)
 
 
-def test_truncated_fmt_chunk_diagnostic(tmp_path):
+def test_truncated_fmt_chunk_diagnostic(tmp_path, monkeypatch):
     bad = tmp_path / 'cut.wav'
     bad.write_bytes(b'RIFF' + struct.pack('<I', 100) + b'WAVE'
                     + b'fmt ' + struct.pack('<I', 16) + b'\x01\x00')
-    same_error(bad, ValueError, 'truncated fmt chunk')
+    same_error(bad, ValueError, 'truncated fmt chunk', monkeypatch)
 
 
-def test_truncated_extensible_fmt_chunk_diagnostic(tmp_path):
+def test_truncated_extensible_fmt_chunk_diagnostic(tmp_path, monkeypatch):
     bad = tmp_path / 'cut_ext.wav'
     fmt16 = struct.pack('<HHIIHH', 0xFFFE, 1, 16000, 32000, 2, 16)
     bad.write_bytes(b'RIFF' + struct.pack('<I', 100) + b'WAVE'
                     + b'fmt ' + struct.pack('<I', 40) + fmt16 + b'\x00' * 4)
-    same_error(bad, ValueError, 'truncated fmt chunk')
+    same_error(bad, ValueError, 'truncated fmt chunk', monkeypatch)

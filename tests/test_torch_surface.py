@@ -39,11 +39,6 @@ EXCLUDED = {
     ('models.gss', 'enable_persistent_compilation_cache'): COMPILE_CACHE,
     ('utils.flops', 'V5E_PEAK_TFLOPS_BF16'): V5E,
     ('utils.flops', 'V5E_PEAK_TFLOPS_F32_6PASS'): V5E,
-    ('io.audio', 'HAVE_NATIVE'): ('the native WAV reader (cpp/wav_ops.cpp) '
-                                  'is not built for the port (ROADMAP)'),
-    ('utils.array_interval', 'HAVE_NATIVE'): (
-        'the native interval algebra (cpp/interval_ops.cpp) is not built '
-        'for the port (ROADMAP)'),
 }
 # Pallas module -> the port's module of its kernels' counterparts
 KERNEL_MODULES = {
