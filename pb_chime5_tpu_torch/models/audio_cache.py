@@ -44,10 +44,14 @@ window is complete before any lookup hands it out, and ``refill_s`` /
 memory belongs to that stream's pool, so the dispatch that reads it on
 another stream must ``record_stream`` it
 (:meth:`GssPipeline.dispatch_cached` does).
+
+The seconds of ``stats`` are those of the cache's spans
+(``utils.profiling.timed_span``): ``cache.refill`` (a synchronous
+refill, the lookup's thread), ``cache.adopt_wait`` (the wait for an
+adopted prefetch) and ``cache.prefetch`` (an upload on the worker).
 """
 
 import threading
-import time
 import weakref
 from concurrent.futures import ThreadPoolExecutor
 
@@ -56,6 +60,7 @@ import torch
 
 from pb_chime5_tpu_torch._device import resolve_device
 from pb_chime5_tpu_torch.io import audio_length, load_audio
+from pb_chime5_tpu_torch.utils.profiling import timed_span
 
 __all__ = ['SessionAudioCache', 'CachedWindow']
 
@@ -173,22 +178,24 @@ class SessionAudioCache:
                 self._length_cache[key] = audio_length(paths)
         return self._length_cache[key]
 
-    def _load_window(self, per_array, bases):
+    def _load_window(self, per_array, bases, name='cache.refill'):
         """Host read + upload of one (A*C, window) window at the given
-        per-array bases; returns (buf, nbytes, seconds).  Runs on the
-        caller's thread for synchronous refills and on the prefetch
-        worker for speculative ones."""
-        t0 = time.perf_counter()
-        rows = []
-        for (paths, _s, _e, selector), base in zip(per_array, bases):
-            # fill_value=0 pads session-tail short reads to exactly
-            # `window` samples, so every row is (C, window)
-            audio = load_audio(paths, start=base, stop=base + self.window,
-                               dtype=None, fill_value=0)
-            rows.append(self.coerce(np.atleast_2d(audio)[selector]))
-        host = np.concatenate(rows, axis=0)
-        buf = self.device_put(host)
-        return buf, host.nbytes, time.perf_counter() - t0
+        per-array bases; returns (buf, nbytes, seconds), the seconds of
+        the span ``name``.  Runs on the caller's thread for synchronous
+        refills (``cache.refill``) and on the prefetch worker for
+        speculative ones (``cache.prefetch``)."""
+        with timed_span(name) as timed:
+            rows = []
+            for (paths, _s, _e, selector), base in zip(per_array, bases):
+                # fill_value=0 pads session-tail short reads to exactly
+                # `window` samples, so every row is (C, window)
+                audio = load_audio(paths, start=base,
+                                   stop=base + self.window, dtype=None,
+                                   fill_value=0)
+                rows.append(self.coerce(np.atleast_2d(audio)[selector]))
+            host = np.concatenate(rows, axis=0)
+            buf = self.device_put(host)
+        return buf, host.nbytes, timed.seconds
 
     def _refill(self, per_array, starts):
         # timed (host read + upload together): 'refill_s'/'refill_mb'
@@ -249,7 +256,8 @@ class SessionAudioCache:
             'bases': bases,
             'spec': self._spec_key(per_array),
             'future': self._executor.submit(
-                self._load_window, list(per_array), bases),
+                self._load_window, list(per_array), bases,
+                'cache.prefetch'),
         }
 
     def _discard_pending(self):
@@ -285,15 +293,15 @@ class SessionAudioCache:
         pending, self._pending = self._pending, None
         if pending is None:
             return False
-        t0 = time.perf_counter()
         try:
-            buf, nbytes, dt = pending['future'].result()
+            with timed_span('cache.adopt_wait') as wait:
+                buf, nbytes, dt = pending['future'].result()
         except Exception:
             self._prefetch_dead += 1
             with self._stats_lock:
                 self.stats['prefetch_wasted'] += 1
             return False
-        waited = time.perf_counter() - t0
+        waited = wait.seconds
         covers = (
             pending['spec'] == self._spec_key(per_array)
             and all(s >= b and s - b + n_pad <= self.window

@@ -40,6 +40,7 @@ from pb_chime5_tpu_torch.ops.stft import istft, samples_to_stft_frames, stft
 from pb_chime5_tpu_torch.parallel import distributed
 from pb_chime5_tpu_torch.parallel.scheduler import length_balanced_shard
 from pb_chime5_tpu_torch.utils import activity_time_to_frequency
+from pb_chime5_tpu_torch.utils.profiling import span
 
 __all__ = ['Activity', 'Enhancer', 'get_enhancer', 'async_session_pump',
            'start_end_context_frames', 'DEFAULT_LENGTH_BUCKETS']
@@ -100,6 +101,12 @@ def async_session_pump(items, prepare, dispatch, finish, id_of, *,
     returns (label, arguments of ``finish``) for what is still held.
     ``on_error='raise'`` re-raises a failure, ``'skip'`` prints it and
     continues.
+
+    Spans (``utils.profiling.span``, the item's id as ``utt``):
+    ``gss.prepare`` on the prefetch thread; on the calling thread
+    ``gss.prepare_wait`` (the wait for the prefetched item),
+    ``gss.dispatch`` and ``gss.write_wait`` (each wait for a written item,
+    ``write_ahead`` back and at the end); the flush is a ``gss.dispatch``.
     """
     import collections
     import concurrent.futures
@@ -118,25 +125,34 @@ def async_session_pump(items, prepare, dispatch, finish, id_of, *,
         window = collections.deque()
         pending = collections.deque()    # (item_id, writer future)
         it = iter(items)
+
+        def prepare_item(item):
+            with span('gss.prepare', id_of(item)):
+                return prepare(item)
+
         for item in it:
-            window.append((item, pool.submit(prepare, item)))
+            window.append((item, pool.submit(prepare_item, item)))
             if len(window) >= prefetch:
                 break
 
         def drain(item_id, future):
-            try:
-                future.result()
-            except Exception:
-                handle_error(item_id)
+            with span('gss.write_wait', item_id):
+                try:
+                    future.result()
+                except Exception:
+                    handle_error(item_id)
 
         while window:
             item, future = window.popleft()
             nxt = next(it, None)
             if nxt is not None:
-                window.append((nxt, pool.submit(prepare, nxt)))
+                window.append((nxt, pool.submit(prepare_item, nxt)))
             item_id = id_of(item)
             try:
-                args = dispatch(item, future.result())
+                with span('gss.prepare_wait', item_id):
+                    prepared = future.result()
+                with span('gss.dispatch', item_id):
+                    args = dispatch(item, prepared)
             except Exception:
                 handle_error(item_id)
                 continue
@@ -144,8 +160,11 @@ def async_session_pump(items, prepare, dispatch, finish, id_of, *,
                 pending.append((item_id, writer.submit(finish, *args)))
             while len(pending) > write_ahead:
                 drain(*pending.popleft())
-        for label, args in (flush() if flush is not None else ()):
-            pending.append((label, writer.submit(finish, *args)))
+        if flush is not None:
+            with span('gss.dispatch'):
+                held = flush()
+            for label, args in held:
+                pending.append((label, writer.submit(finish, *args)))
         while pending:
             drain(*pending.popleft())
 
@@ -297,7 +316,58 @@ class Enhancer:
         ``mesh`` (``parallel.mesh.make_mesh``): collate same-bucket
         utterances into batches of data x ``utterances_per_device`` rows,
         each run over the mesh's devices (:meth:`_session_loop_mesh`).
+
+        Spans (``utils.profiling.span``): ``gss.session_setup`` from the
+        entry to the session loop, the loop's (:func:`async_session_pump`)
+        and, with the example id, ``gss.gather`` and ``gss.write`` on the
+        writer thread, ``audio.read`` and the cache's under ``gss.prepare``,
+        ``gss.activity``, ``gss.upload`` and ``gss.enqueue`` under
+        ``gss.dispatch``.
         """
+        with span('gss.session_setup'):
+            audio_dir, todo, mark_complete = self._session_todo(
+                session_ids, audio_dir, dataset_slice, audio_dir_exist_ok,
+                is_master, shard_fn, resume)
+            if self._audio_cache is not None:
+                # a new run is a new schedule: don't inherit a previous
+                # run's wasteful-schedule disable (or its stale window)
+                self._audio_cache.new_run()
+            cache_since = self._cache_stats_snapshot()
+
+        def finish(example_id, session_id, handle):
+            # writer thread: waits for the device result, writes the WAV
+            with span('gss.gather', example_id):
+                x_hat = self._finish_dispatched(handle)
+            assert x_hat.ndim == 1, x_hat.shape
+            dataset = mapping.session_to_dataset[session_id]
+            with span('gss.write', example_id):
+                dump_audio(x_hat, audio_dir / dataset / f'{example_id}.wav')
+            if mark_complete is not None:
+                mark_complete(example_id)
+            if progress is not None:
+                progress(example_id)
+
+        def dispatch(ex, prepared):
+            reference_array, obs = prepared
+            handle = self._dispatch_loaded(ex, reference_array, obs)
+            return ex['example_id'], ex['session_id'], handle
+
+        prepare = functools.partial(self._prepare_example, use_cache=True)
+        if mesh is not None:
+            self._session_loop_mesh(
+                todo, prepare, mesh, utterances_per_device, audio_dir,
+                mark_complete, progress, on_error, write_ahead)
+        else:
+            async_session_pump(
+                todo, prepare, dispatch, finish, lambda ex: ex['example_id'],
+                on_error=on_error, write_ahead=write_ahead)
+        self._log_cache_stats(cache_since)
+
+    def _session_todo(self, session_ids, audio_dir, dataset_slice,
+                      audio_dir_exist_ok, is_master, shard_fn, resume):
+        """:meth:`enhance_session`'s set-up: its output directories and
+        its examples -> (audio_dir, lazy examples to do, the shard's
+        ``mark_complete`` or None)."""
         audio_dir = Path(audio_dir)
         it = self.get_iterator(session_ids)
 
@@ -353,38 +423,7 @@ class Enhancer:
                     continue
                 yield ex
         todo = todo_gen()
-
-        def finish(example_id, session_id, handle):
-            # writer thread: waits for the device result, writes the WAV
-            x_hat = self._finish_dispatched(handle)
-            assert x_hat.ndim == 1, x_hat.shape
-            dataset = mapping.session_to_dataset[session_id]
-            dump_audio(x_hat, audio_dir / dataset / f'{example_id}.wav')
-            if mark_complete is not None:
-                mark_complete(example_id)
-            if progress is not None:
-                progress(example_id)
-
-        def dispatch(ex, prepared):
-            reference_array, obs = prepared
-            handle = self._dispatch_loaded(ex, reference_array, obs)
-            return ex['example_id'], ex['session_id'], handle
-
-        if self._audio_cache is not None:
-            # a new run is a new schedule: don't inherit a previous
-            # run's wasteful-schedule disable (or its stale window)
-            self._audio_cache.new_run()
-        cache_since = self._cache_stats_snapshot()
-        prepare = functools.partial(self._prepare_example, use_cache=True)
-        if mesh is not None:
-            self._session_loop_mesh(
-                todo, prepare, mesh, utterances_per_device, audio_dir,
-                mark_complete, progress, on_error, write_ahead)
-        else:
-            async_session_pump(
-                todo, prepare, dispatch, finish, lambda ex: ex['example_id'],
-                on_error=on_error, write_ahead=write_ahead)
-        self._log_cache_stats(cache_since)
+        return audio_dir, todo, mark_complete
 
     def _session_loop_mesh(self, todo, prepare, mesh, utterances_per_device,
                            audio_dir, mark_complete, progress, on_error,
@@ -409,9 +448,11 @@ class Enhancer:
 
         def dispatch(ex, prepared):
             reference_array, obs = prepared
-            activity_freq, target_index, start_cf, end_cf = self._device_args(
-                self._example_activity(ex, reference_array),
-                ex['speaker_id'], ex)
+            with span('gss.activity'):
+                activity_freq, target_index, start_cf, end_cf = \
+                    self._device_args(
+                        self._example_activity(ex, reference_array),
+                        ex['speaker_id'], ex)
             kw = dict(start_context_frames=start_cf, end_context_frames=end_cf,
                       tag=(ex['example_id'], ex['session_id'],
                            self._trim(ex, reference_array)))
@@ -425,11 +466,16 @@ class Enhancer:
 
         def write_batch(batch):
             # writer thread: waits for the batch, trims and writes its rows
-            for (example_id, session_id, trim), x_hat in batch.gather():
+            label = '+'.join(item.tag[0] for item in batch.items)
+            with span('gss.gather', label):
+                rows = list(batch.gather())
+            for (example_id, session_id, trim), x_hat in rows:
                 if trim is not None:
                     x_hat = x_hat[..., trim[0]:trim[0] + trim[1]]
                 dataset = mapping.session_to_dataset[session_id]
-                dump_audio(x_hat, audio_dir / dataset / f'{example_id}.wav')
+                with span('gss.write', example_id):
+                    dump_audio(x_hat,
+                               audio_dir / dataset / f'{example_id}.wav')
                 if mark_complete is not None:
                     mark_complete(example_id)
                 if progress is not None:
@@ -605,7 +651,9 @@ class Enhancer:
                 ex['session_id'], self._cache_spans(ex, reference_array))
             if cached is not None:
                 return reference_array, cached
-        return reference_array, self._load_observation(ex, reference_array)
+        with span('audio.read'):
+            return reference_array, self._load_observation(ex,
+                                                           reference_array)
 
     def enhance_example(self, ex):
         reference_array, obs = self._prepare_example(ex)
@@ -675,9 +723,10 @@ class Enhancer:
         """Asynchronous dispatch of one loaded utterance; the handle's
         :meth:`GssPipeline.gather` yields the emitted (trimmed) waveform
         (reference core.py:500-505)."""
-        activity_freq, target_index, start_cf, end_cf = self._device_args(
-            self._example_activity(ex, reference_array),
-            ex['speaker_id'], ex)
+        with span('gss.activity'):
+            activity_freq, target_index, start_cf, end_cf = \
+                self._device_args(self._example_activity(ex, reference_array),
+                                  ex['speaker_id'], ex)
         kw = dict(start_context_frames=start_cf, end_context_frames=end_cf,
                   trim=self._trim(ex, reference_array))
         if isinstance(obs, CachedWindow):

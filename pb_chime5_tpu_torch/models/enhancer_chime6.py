@@ -27,6 +27,7 @@ from pb_chime5_tpu_torch.models.enhancer import (
     check_factory_options)
 from pb_chime5_tpu_torch.models.gss import GssConfig
 from pb_chime5_tpu_torch.ops.stft import samples_to_stft_frames
+from pb_chime5_tpu_torch.utils.profiling import span
 
 __all__ = ['Activity', 'Enhancer', 'get_enhancer',
            'start_end_context_frames']
@@ -110,7 +111,8 @@ class Enhancer(_Chime5Enhancer):
                 ex['session_id'], self._cache_spans(ex, ref))
             if cached is not None:
                 return None, cached
-        return None, self._load_observation_flat(ex)
+        with span('audio.read'):
+            return None, self._load_observation_flat(ex)
 
     def _example_activity(self, ex, reference_array):
         return {

@@ -28,6 +28,7 @@ from pb_chime5_tpu_torch.models.enhancer_chime6 import (
     Enhancer as _Chime6Enhancer)
 from pb_chime5_tpu_torch.models.gss import GssConfig
 from pb_chime5_tpu_torch.utils import ArrayInterval
+from pb_chime5_tpu_torch.utils.profiling import span
 
 __all__ = ['Activity', 'Enhancer', 'get_database', 'get_enhancer']
 
@@ -87,7 +88,8 @@ class Enhancer(_Chime6Enhancer):
         )
 
     def _prepare_example(self, ex, use_cache=False):
-        return None, load_example_audio(ex)
+        with span('audio.read'):
+            return None, load_example_audio(ex)
 
     def _example_activity(self, ex, reference_array):
         return {

@@ -39,6 +39,7 @@ from pb_chime5_tpu_torch.ops.cacgmm import (
 from pb_chime5_tpu_torch.ops.stft import (
     istft, stft, stft_frame_count, valid_frame_mask)
 from pb_chime5_tpu_torch.ops.wpe import wpe
+from pb_chime5_tpu_torch.utils.profiling import record_spans, span
 
 __all__ = ['GssConfig', 'gss_enhance', 'gss_enhance_cached',
            'gss_enhance_debug', 'gss_enhance_split',
@@ -59,13 +60,17 @@ _stage_events = None     # CUDA events of gss_enhance inside record_stage_times
 def record_stage_times():
     """Per-stage device times of the :func:`gss_enhance` calls on CUDA
     made inside the block: yields a list that, on exit, holds one
-    ``{stage: ms}`` dict (CUDA events, in :data:`STAGES` order) per call."""
+    ``{stage: ms}`` dict (CUDA events, in :data:`STAGES` order) per call.
+    The block also records the host spans of every thread
+    (``utils.profiling.record_spans``; read them with
+    ``utils.profiling.recorded_spans()``)."""
     global _stage_events
     assert _stage_events is None, 'record_stage_times does not nest'
     _stage_events = []
     times = []
     try:
-        yield times
+        with record_spans():
+            yield times
         for events in _stage_events:
             events[-1].synchronize()
             times.append({name: events[i].elapsed_time(events[i + 1])
@@ -602,10 +607,11 @@ class GssPipeline:
                                      output_trim_samples=out_pad)
 
     def _upload(self, array):
-        x = torch.from_numpy(np.ascontiguousarray(array))
-        if self.device.type == 'cuda':
-            x = x.pin_memory()
-        return x.to(self.device, non_blocking=True)
+        with span('gss.upload'):
+            x = torch.from_numpy(np.ascontiguousarray(array))
+            if self.device.type == 'cuda':
+                x = x.pin_memory()
+            return x.to(self.device, non_blocking=True)
 
     def _bucket_activity(self, activity_freq, N_pad):
         """(K, T) activity -> int8 (K, T_pad) on the device."""
@@ -633,13 +639,15 @@ class GssPipeline:
         padded, N = self._padded(obs)
         N_pad = padded.shape[1]
         N_dl, host_slice, trim_kw = self._plan_trim(trim, N, N_pad)
-        x_hat, masks = gss_enhance(
-            self._upload(padded), self._bucket_activity(activity_freq, N_pad),
-            target_index, config=self.config,
-            start_context_frames=start_context_frames,
-            end_context_frames=end_context_frames, num_valid_samples=N,
-            num_output_samples=N_pad, **trim_kw)
-        return self._handle(x_hat, masks, N_dl, host_slice)
+        device_obs = self._upload(padded)
+        activity = self._bucket_activity(activity_freq, N_pad)
+        with span('gss.enqueue'):
+            x_hat, masks = gss_enhance(
+                device_obs, activity, target_index, config=self.config,
+                start_context_frames=start_context_frames,
+                end_context_frames=end_context_frames, num_valid_samples=N,
+                num_output_samples=N_pad, **trim_kw)
+            return self._handle(x_hat, masks, N_dl, host_slice)
 
     def dispatch_cached(self, cache, offsets, num_valid_samples,
                         activity_freq, target_index, *,
@@ -667,15 +675,18 @@ class GssPipeline:
             raise ValueError(f'offsets {offsets} + {N_pad} samples outside '
                              f'the window of {W}')
         if cache.device.type == 'cuda':
-            cache.record_stream(torch.cuda.current_stream(cache.device))
+            with span('gss.upload'):
+                cache.record_stream(torch.cuda.current_stream(cache.device))
         N_dl, host_slice, trim_kw = self._plan_trim(trim, N, N_pad)
-        x_hat, masks = gss_enhance_cached(
-            cache, offsets, self._bucket_activity(activity_freq, N_pad),
-            target_index, config=self.config, num_arrays=len(offsets),
-            slice_samples=N_pad, start_context_frames=start_context_frames,
-            end_context_frames=end_context_frames, num_valid_samples=N,
-            num_output_samples=N_pad, **trim_kw)
-        return self._handle(x_hat, masks, N_dl, host_slice)
+        activity = self._bucket_activity(activity_freq, N_pad)
+        with span('gss.enqueue'):
+            x_hat, masks = gss_enhance_cached(
+                cache, offsets, activity, target_index, config=self.config,
+                num_arrays=len(offsets), slice_samples=N_pad,
+                start_context_frames=start_context_frames,
+                end_context_frames=end_context_frames, num_valid_samples=N,
+                num_output_samples=N_pad, **trim_kw)
+            return self._handle(x_hat, masks, N_dl, host_slice)
 
     def _handle(self, x_hat, masks, N_dl, host_slice):
         """Enqueue the waveform's download into pinned host memory behind

@@ -246,6 +246,45 @@ def test_audio_cache_prefetch(tmp_path):
     assert c2._pending is None
 
 
+def test_audio_cache_seconds_are_its_spans(tmp_path):
+    """Inside a span recording the time-ordered schedule leaves one
+    ``cache.refill`` a synchronous refill, one ``cache.adopt_wait`` an
+    adopted prefetch and one ``cache.prefetch`` an upload on the worker
+    thread; ``refill_s`` and ``prefetch_s`` are those spans' seconds."""
+    from pb_chime5_tpu_torch.utils.profiling import (
+        record_spans, recorded_spans)
+    wav = _mono(tmp_path, 'long3.wav', 40, 3)
+
+    def spans(start, n):
+        return [((str(wav),), start, start + n, slice(None))]
+
+    c = SessionAudioCache(device='cpu', **CACHE)
+    n, step = FS, int(0.4 * FS)
+    with record_spans():
+        for i in range(24):
+            assert c.lookup('S', spans(i * step, n)) is not None
+            settle(c)
+    c.close()
+    s = c.stats
+    assert s['prefetch_hits'] >= 1 and s['prefetch_wasted'] == 0, s
+    recorded = recorded_spans()
+    seconds = {}
+    for name in ('cache.refill', 'cache.adopt_wait', 'cache.prefetch'):
+        durations = [(x.end_ns - x.start_ns) / 1e9 for x in recorded
+                     if x.name == name]
+        seconds[name] = sum(round(d, 4) for d in durations)
+        count = {'cache.refill': s['refills'] - s['prefetch_hits'],
+                 'cache.adopt_wait': s['prefetch_hits'],
+                 'cache.prefetch': s['prefetch_hits']}[name]
+        assert len(durations) == count, (name, s)
+    assert s['refill_s'] == pytest.approx(
+        seconds['cache.refill'] + seconds['cache.adopt_wait'], abs=1e-9)
+    assert s['prefetch_s'] == pytest.approx(seconds['cache.prefetch'],
+                                            abs=1e-9)
+    threads = {x.name: x.thread for x in recorded}
+    assert threads['cache.prefetch'] != threads['cache.refill']
+
+
 def test_audio_cache_discard_accounting_and_close(tmp_path):
     """An in-flight prefetch dropped by new_run() is charged to refill_mb
     + prefetch_wasted once it lands (or, cancelled before it started,

@@ -21,6 +21,7 @@ import ast
 import subprocess
 import sys
 import textwrap
+import threading
 
 import numpy as np
 import pytest
@@ -34,6 +35,8 @@ from pb_chime5_tpu.models.enhancer import get_enhancer as jax_get_enhancer
 from pb_chime5_tpu.models.gss import GssConfig as JaxGssConfig
 from pb_chime5_tpu.testing import create_synthetic_chime5
 from pb_chime5_tpu_torch.models.enhancer import get_enhancer
+from pb_chime5_tpu_torch.models.gss import (
+    record_stage_times as gss_record_stage_times)
 from pb_chime5_tpu_torch.scripts.run import make_experiment
 
 torch.set_num_threads(2)
@@ -116,6 +119,55 @@ def test_device_audio_cache_byte_identical(corpus, tmp_path):
     assert len(wavs_off) >= 2
     for a, b in zip(wavs_off, wavs_on):
         assert a.read_bytes() == b.read_bytes(), a.name
+
+
+@pytest.mark.parametrize('calls', [1, 2])
+def test_session_spans(corpus, tmp_path, calls):
+    """``enhance_session`` inside ``record_stage_times``: per written WAV
+    one ``gss.prepare_wait``, ``gss.dispatch`` and ``gss.write`` with its
+    example id, one ``gss.session_setup`` a call; ``gss.prepare`` on the
+    prefetch thread, ``gss.dispatch`` on the calling thread and
+    ``gss.write`` on the writer thread, three threads; the dispatch's
+    children under it."""
+    from pb_chime5_tpu_torch.utils.profiling import recorded_spans
+    enhancer = get_enhancer(database_path=str(corpus), multiarray=False,
+                            wpe=False, device='cpu', **SETTINGS)
+    with gss_record_stage_times():
+        for call in range(calls):
+            enhancer.enhance_session(['S02'], tmp_path / 'out',
+                                     audio_dir_exist_ok=True)
+    wavs = sorted(w.stem for w in (tmp_path / 'out' / 'dev').glob('*.wav'))
+    assert len(wavs) >= 2
+    spans = recorded_spans()
+    assert all(s.end_ns is not None for s in spans)
+
+    def of(name):
+        return [s for s in spans if s.name == name]
+
+    assert len(of('gss.session_setup')) == calls
+    for name in ('gss.prepare', 'gss.prepare_wait', 'gss.dispatch',
+                 'gss.gather', 'gss.write'):
+        assert sorted(s.utt for s in of(name)) == sorted(wavs * calls), name
+    threads = {name: {s.thread for s in of(name)}
+               for name in ('gss.prepare', 'gss.dispatch', 'gss.write')}
+    calling = threading.get_native_id()
+    assert threads['gss.dispatch'] == {calling}
+    assert len(threads['gss.prepare']) == calls          # a pool a call
+    assert len(threads['gss.write']) == calls
+    assert not threads['gss.prepare'] & (threads['gss.write'] | {calling})
+    assert not threads['gss.write'] & {calling}
+    for name in ('gss.activity', 'gss.upload', 'gss.enqueue'):
+        children = of(name)
+        assert children, name
+        for child in children:
+            parent = spans[child.parent]
+            assert parent.name == 'gss.dispatch' and parent.utt == child.utt
+    for name in ('gss.session_setup', 'gss.prepare_wait', 'gss.dispatch',
+                 'gss.write_wait'):
+        assert all(s.parent is None and s.thread == calling
+                   for s in of(name)), name
+    assert of('cache.refill') and all(
+        spans[s.parent].name == 'gss.prepare' for s in of('cache.refill'))
 
 
 def test_session_dispatch_is_time_ordered(tmp_path):
