@@ -41,7 +41,8 @@ Phases (the first failure ends the run with a non-zero exit code):
    shows) on the card; the fused
    kernel must carry every E+M pass and ``em_finalize`` every finalize
    (20 each per utterance), the Gauss-Jordan kernel the MVDR solve (1),
-   ``hermitian_solve_chol`` every WPE solve (3);
+   ``hermitian_solve_chol`` every WPE solve (3), K2 every WPE iteration's
+   statistics (3) ("20 / 20 / 1 / 3 / 3" below);
    the WAVs must be
    finite, non-silent and of the utterance's length; per-stage and
    per-utterance times; on a small two-speaker scene the card must agree
@@ -75,7 +76,8 @@ Phases (the first failure ends the run with a non-zero exit code):
 7. options path: the session ``Enhancer`` on P06, warm, once for each of
    ``bf='gev_ban'``, ``bf='lcmv'``, the WPE options (``psd_context=1,
    chunk_size=512, solve_refine=1``), ``bss_inverse='cholesky'`` and
-   ``'eigh'``: 20 K1 launches, 3 WPE solves, 20 ``em_finalize`` where the
+   ``'eigh'``: 20 K1 launches, 3 WPE solves, 3 K2 launches where the
+   option has no ``chunk_size``, 20 ``em_finalize`` where the
    option keeps
    the Gauss-Jordan EM inverse, the MVDR solve's 1 where it beamforms with
    MVDR, and no other kernel, a finite non-silent WAV
@@ -90,7 +92,7 @@ Phases (the first failure ends the run with a non-zero exit code):
    off, off, on: each pass's wall, utterances a second, xRT over emitted
    and processed seconds, the chains' stage windows and the share of the
    wall outside them, the cache's stats line, the bytes read and uploaded
-   each way, peak device memory; gated: 20 / 20 / 1 / 3 launches an
+   each way, peak device memory; gated: 20 / 20 / 1 / 3 / 3 launches an
    utterance and nothing else, every cached WAV byte-identical to its
    direct twin, ``hits > 0``, ``refills >= 2``, ``prefetch_hits >= 1``,
    ``prefetch_wasted == 0``, ``direct == 0``; once more with a 60 s window
@@ -110,7 +112,7 @@ Phases (the first failure ends the run with a non-zero exit code):
    --chime6``, an RTTM of its annotations (as ci.sh makes it).  Track 1:
    ``kaldi_run main with chime6=True multiarray`` (default config, D = 24)
    as one job with the session-audio cache on, then off, then as 3 jobs;
-   gated: 20 / 20 / 1 / 3 launches an utterance and nothing else, 12
+   gated: 20 / 20 / 1 / 3 / 3 launches an utterance and nothing else, 12
    finite, non-silent WAVs of their utterances' length, ``hits > 0`` and
    ``direct == 0``, the uncached and the 3 jobs' WAVs byte-identical to
    the single cached job's.  Track 2: ``kaldi_run_rttm main`` at the
@@ -127,7 +129,7 @@ Phases (the first failure ends the run with a non-zero exit code):
 11. the per-frequency ('xla') EM, float64 and the debug twin: P06 through
    ``GssConfig(bss_em_backend='xla')`` (float32, default config; gated:
    K1 0, ``em_finalize`` 0, the relative inverse 21 (20 M-steps + the
-   MVDR solve), K5 3; wall and stages beside the default config's); on
+   MVDR solve), K5 3, K2 3; wall and stages beside the default config's); on
    P06's WPE output the EMs alone, each timed with its peak memory and
    launches: K1's, the 'xla' one, the chunked one (``em_chunk_size=256``:
    the relative inverse 1, ``em_finalize`` 19), both 'xla' ones in
@@ -155,7 +157,7 @@ Phases (the first failure ends the run with a non-zero exit code):
    ``enhance_session(mesh=make_mesh(1, 1), utterances_per_device=B)``,
    B = 1 and 4, in turns with the serial loop (serial, 1, 4, 4, 1,
    serial): each pass's wall, utterances a second, xRT, peak memory and
-   launches a batch (gated: 20 / 20 / 1 / 3 a batch, nothing else); B = 1
+   launches a batch (gated: 20 / 20 / 1 / 3 / 3 a batch, nothing else); B = 1
    WAVs byte-identical to the serial ones, B = 4 within 1e-2 of the peak
    (the largest deviation printed); K1's batched entry on the first
    B = 4 batch's first masked pass against its plain version (the
@@ -181,7 +183,7 @@ Phases (the first failure ends the run with a non-zero exit code):
    (``testing/fake_kaldi.py``), then phase 8's first 20 utterances (a
    depth cut) through ``enhance_session`` at the default config with
    ``activity_type='path'`` on the annotation pickles, on the refined
-   pickles, and ``'annotation'`` (gated: 20 / 20 / 1 / 3 launches an
+   pickles, and ``'annotation'`` (gated: 20 / 20 / 1 / 3 / 3 launches an
    utterance, the annotation pickles' WAVs byte-identical to
    ``'annotation'``'s, every refined WAV finite, non-silent and other
    than its annotation twin, one refined utterance card vs CPU at a
@@ -198,7 +200,8 @@ Phases (the first failure ends the run with a non-zero exit code):
    of the cache's windows (printed: the windowed means, the RSS and
    device-memory curves); (c) ``dryrun.dryrun_multichip`` over 4 and 8
    slots of cuda:0 (its cached leg bit-equal to its direct leg; the
-   launches of its legs, data groups and frequency shards); (d) phase
+   launches of its legs, data groups and frequency shards, K2 once each
+   for its one WPE iteration); (d) phase
    8's first 2 utterances under ``utils.profiling.trace`` (the trace file
    must name K1's kernel 20 times an utterance), and the FLOP model's
    achieved TFLOP/s and MFU against 67 TFLOP/s over P06's stage windows
@@ -206,10 +209,10 @@ Phases (the first failure ends the run with a non-zero exit code):
    windows (printed, not gated);
 14. the float32 WPE statistics at a production length: the stress scene
    of ``tests/test_torch_stress_headline.py`` (seed 0, 67 s, D = 24,
-   T = 4191) through the STFT and the default float32 WPE on the card,
-   once by the default statistics route (256-frame complex64 tiles added
-   into complex128) and once by K2 (``wpe_stats_backend='pallas'``, its
-   64-frame float32 spans added in float64), each counted from 0 (3
+   T = 4191) through the STFT and the float32 WPE on the card, once by
+   the tile route (``wpe_stats_backend='xla'``: 256-frame complex64 tiles
+   added into complex128) and once by K2 (the default ``GssConfig()``,
+   its 64-frame float32 spans added in float64), each counted from 0 (3
    ``hermitian_solve_chol`` launches, and 3 K2 launches on K2's run);
    gated on each: the output finite at all 513 frequencies, the second
    iteration's R and P within 1.2e-6 of float64 sums of the same inputs
@@ -948,7 +951,8 @@ def default_path(torch, counts, work):
     check(launches == expected,
           f'default path launches {launches}, expected {expected} '
           f'({EM_PASSES} fused E+M passes and finalizes, {MVDR_SOLVES} '
-          f'MVDR solve and {WPE_ITERATIONS} WPE solves per utterance)')
+          f'MVDR solve, {WPE_ITERATIONS} WPE statistics and solves per '
+          f'utterance)')
     check(not imported_jax(), 'the port imported jax or the JAX package')
 
     enhancer = get_enhancer(multiarray=True, database_path=str(db),
@@ -1283,16 +1287,19 @@ OPTIONS = {           # phase 7 on P06: GssConfig fields of each option
     'eigh': dict(bss_inverse='eigh'),
 }
 # their kernel launches per utterance beside K1's 20 and the WPE solve's 3
-# (every option runs WPE): em_finalize where the
+# (every option runs WPE): K2's 3 where WPE has no chunk_size (the
+# chunked statistics are complex matmuls), em_finalize where the
 # EM inverse stays Gauss-Jordan, the complex64 MVDR solve where the
 # beamformer is MVDR (GEV and LCMV solve in float64, on the plain version)
 OPTION_LAUNCHES = {
-    'gev_ban': {'em_finalize': EM_PASSES},
-    'lcmv': {'em_finalize': EM_PASSES},
+    'gev_ban': {'em_finalize': EM_PASSES, 'wpe_statistics': WPE_ITERATIONS},
+    'lcmv': {'em_finalize': EM_PASSES, 'wpe_statistics': WPE_ITERATIONS},
     'wpe_options': {'em_finalize': EM_PASSES,
                     'gauss_jordan_inverse_and_logdet': MVDR_SOLVES},
-    'cholesky': {'gauss_jordan_inverse_and_logdet': MVDR_SOLVES},
-    'eigh': {'gauss_jordan_inverse_and_logdet': MVDR_SOLVES},
+    'cholesky': {'gauss_jordan_inverse_and_logdet': MVDR_SOLVES,
+                 'wpe_statistics': WPE_ITERATIONS},
+    'eigh': {'gauss_jordan_inverse_and_logdet': MVDR_SOLVES,
+             'wpe_statistics': WPE_ITERATIONS},
 }
 # the small scene, card vs CPU, at the 10-iteration EM of the other
 # phases: each option and ch2 / sum.  GEV + BAN runs without WPE, as
@@ -1389,11 +1396,13 @@ QUALITY_CONFIGS = (('10-iteration EM', dict(bss_iterations=10)),
 def expected_launches(launches, n):
     """The default config's launches for ``n`` utterances: K1 and
     ``em_finalize`` EM_PASSES times, the MVDR solve's inverse MVDR_SOLVES
-    times, the WPE solve WPE_ITERATIONS times, nothing else."""
+    times, the WPE statistics (K2) and solve WPE_ITERATIONS times, nothing
+    else."""
     return {**dict.fromkeys(launches, 0),
             'fused_em_scatter': EM_PASSES * n,
             'em_finalize': EM_PASSES * n,
             'gauss_jordan_inverse_and_logdet': MVDR_SOLVES * n,
+            'wpe_statistics': WPE_ITERATIONS * n,
             'hermitian_solve_chol': WPE_ITERATIONS * n}
 
 
@@ -1717,7 +1726,7 @@ def cli_pass(torch, counts, make_experiment, argv, storage, n,
              n_wavs=None):
     """One CLI run (``main``, on the card: the CLIs' default device) of
     ``n`` utterances into ``storage``: its wall, launches (gated: 20 / 20 /
-    1 / 3 an utterance, nothing else), the WAVs there (``n_wavs``, by
+    1 / 3 / 3 an utterance, nothing else), the WAVs there (``n_wavs``, by
     default ``n``), printed output and peak device memory."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2077,6 +2086,7 @@ def xla_em_on_p06(torch, counts, enhancer, examples):
     launches = counts.read()
     expected = {**dict.fromkeys(launches, 0),
                 'gauss_jordan_inverse_and_logdet': EM_PASSES + MVDR_SOLVES,
+                'wpe_statistics': WPE_ITERATIONS,
                 'hermitian_solve_chol': WPE_ITERATIONS}
     print(f"'xla' EM path launches: {launches}", flush=True)
     check(launches == expected,
@@ -2459,7 +2469,7 @@ def counted_batches():
 
 def mesh_pass(torch, counts, enhancer, n, out, mesh, rows, numbers):
     """One ``enhance_session(mesh=..., utterances_per_device=rows)`` of the
-    whole session: wall, batches, launches (gated: 20 / 20 / 1 / 3 a
+    whole session: wall, batches, launches (gated: 20 / 20 / 1 / 3 / 3 a
     batch, nothing else), peak memory; ``numbers`` (emitted and processed
     seconds) for the rates."""
     torch.cuda.synchronize()
@@ -3118,9 +3128,9 @@ def session_soaks(torch, counts, work):
 def dry_runs(torch, counts):
     """Phase 13c: ``dryrun.dryrun_multichip`` over DRYRUN_SLOTS slots of
     cuda:0 (its own gates: every utterance back, finite, cached bit-equal
-    to direct); the launches: K1 and ``em_finalize`` twice (a 2 + 1 EM)
-    and the MVDR inverse once per leg, data group and frequency shard, no
-    WPE kernel (d = 8)."""
+    to direct); the launches: K1 and ``em_finalize`` twice (a 2 + 1 EM),
+    the MVDR inverse and K2 (one WPE iteration) once per leg, data group
+    and frequency shard, no WPE solve kernel (d = 8)."""
     from pb_chime5_tpu_torch.dryrun import dryrun_multichip
     counts.reset()
     expected = dict.fromkeys(counts.read(), 0)
@@ -3135,6 +3145,7 @@ def dry_runs(torch, counts):
         expected['fused_em_scatter'] += 2 * runs
         expected['em_finalize'] += 2 * runs
         expected['gauss_jordan_inverse_and_logdet'] += runs
+        expected['wpe_statistics'] += runs
     launches = counts.read()
     check(launches == expected,
           f'dry runs: launches {launches}, expected {expected}')
@@ -3283,8 +3294,9 @@ def stress_wpe_path(torch, counts, wpe_stats, p06_wpe_ms):
     obs = torch.from_numpy(obs.astype(np.float32)).cuda()
     launches = {}
     for label, name, config in (
-            ('default', 'wpe_statistics_reference', GssConfig()),
-            ('K2', 'wpe_statistics', GssConfig(wpe_stats_backend='pallas'))):
+            ('xla', 'wpe_statistics_reference',
+             GssConfig(wpe_stats_backend='xla')),
+            ('K2', 'wpe_statistics', GssConfig())):
         O, fm, _ = _stft_and_mask(obs, None, config)
         real = getattr(wpe, name)
         captured = []
@@ -3651,7 +3663,7 @@ def main():
             work / 'slice13')
         torch.cuda.empty_cache()
         phase('14 the float32 WPE statistics on the stress scene (D = 24, '
-              'T = 4191): the default route and K2')
+              'T = 4191): the xla tiles and K2 (the default)')
         stress_launches = stress_wpe_path(torch, counts, wpe_stats,
                                           p06_wpe_ms)
         phase('15 the native host readers: segmented WAV reads and the '
@@ -3671,8 +3683,8 @@ def main():
                     'mesh': mesh_launches,
                     'alignment activity': refined_launches,
                     'soak': soak_launches, 'dry run': dry_launches,
-                    'stress WPE, default route': stress_launches['default'],
-                    'stress WPE, K2': stress_launches['K2']}
+                    'stress WPE, xla tiles': stress_launches['xla'],
+                    'stress WPE, K2 (default)': stress_launches['K2']}
         return {'name': name, 'route': 'cuda',
                 'source': f'pb_chime5_tpu_torch/csrc/{source}',
                 'replaces': f'pb_chime5_tpu/ops/pallas/{replaces}',
@@ -3700,7 +3712,8 @@ def main():
                 **k1_batched, 'launches': mesh_launches['fused_em_scatter'],
                 'path': 'mesh'}}),
         row('wpe_statistics', 'wpe_stats.cu', 'wpe_stats.py:54',
-            pallas_launches['wpe_statistics'], results['wpe_statistics']),
+            default_launches['wpe_statistics'], results['wpe_statistics'],
+            path='default'),
         row("em_finalize (floor='flt_min')", 'gj_inverse.cu',
             'gj_inverse2d.py:67', pallas_launches['em_finalize'],
             results['em_finalize_flt_min'], path='all-Pallas',

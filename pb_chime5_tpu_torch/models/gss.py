@@ -96,10 +96,13 @@ class GssConfig:
     TPU-only implementation choices keep their names and accept their
     defaults and the ported kernels (``compile_mode='fast_start'`` runs
     the one eager chain of :func:`gss_enhance`, which has no compile to
-    split into the JAX package's three programs): the all-Pallas configuration
+    split into the JAX package's three programs): the default runs the
+    WPE statistics kernel on the card (complex64, no ``wpe_chunk_size``)
+    beside the fused E+M kernel; the all-Pallas configuration
     ``GssConfig(bss_em_backend='pallas', bss_inverse='pallas_gj',
-    wpe_stats_backend='pallas')`` runs the statistics and Gauss-Jordan
-    kernels beside the fused E+M kernel; ``bss_em_backend='xla'`` runs the
+    wpe_stats_backend='pallas')`` adds the Gauss-Jordan kernel's EM
+    inverse; ``wpe_stats_backend='xla'`` computes the WPE statistics as
+    complex matmuls over 256-frame tiles; ``bss_em_backend='xla'`` runs the
     per-frequency EM (``ops/cacgmm.py``).  The chain's options are ported:
     WPE ``psd_context``, ``chunk_size`` and ``solve_refine``, the EM
     inverses 'cholesky', 'schur' and 'eigh', and every beamformer of
@@ -119,6 +122,9 @@ class GssConfig:
     wpe_regularization: float = 1e-4
     wpe_chunk_size: int = None
     wpe_precision: str = 'highest'
+    # 'auto' (the statistics kernel for complex64 on CUDA without
+    # wpe_chunk_size, else the complex matmuls) | 'pallas' (the kernel)
+    # | 'xla' (the complex matmuls): ops/wpe.py's stats_route
     wpe_stats_backend: str = 'auto'
     wpe_solve_refine: int = 0
 

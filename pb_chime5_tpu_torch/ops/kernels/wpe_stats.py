@@ -13,6 +13,10 @@ Both versions sum T in two levels, float32 then float64 (the kernel in
 64-frame spans, the plain version in ``TILE``-frame complex64 matmuls):
 one float32 sum over all T left the second WPE iteration's R indefinite
 past the 1e-4 load at T = 4191 (``ops/wpe.py``).
+
+``ops/wpe.py`` takes the kernel by default for complex64 on CUDA without
+``chunk_size``, and the plain version for ``stats_backend='xla'``, on
+the CPU and for complex128 (``stats_route``).
 """
 
 import ctypes
@@ -25,7 +29,7 @@ __all__ = ['wpe_statistics', 'wpe_statistics_reference',
            'accumulate_statistics', 'TILE']
 
 _ARGTYPES = (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 4 + (ctypes.c_void_p,)
-TILE = 256      # frames a tile of the plain version's T sum (default route)
+TILE = 256      # frames a tile of the plain version's T sum
 
 
 def _check(Y_tilde, Y, inv_power):
@@ -85,8 +89,9 @@ wpe_statistics.launches = 0
 
 
 def wpe_statistics_reference(Y_tilde, Y, inv_power):
-    """Plain PyTorch version of :func:`wpe_statistics`, and the default
-    route's statistics: the weighted complex matmuls over T-tiles of
+    """Plain PyTorch version of :func:`wpe_statistics`, and the
+    statistics of ``stats_backend='xla'`` (and of the default on the CPU
+    and for complex128): the weighted complex matmuls over T-tiles of
     ``TILE`` frames, each tile's product added into complex128 sums
     (:func:`accumulate_statistics`), rounded to the input's dtype once.
     One matmul over all T drifts from the float64 sums by ~sqrt(T)

@@ -11,15 +11,21 @@ Iterative offline WPE batched over frequency:
 * statistics ``R = hermitize((Ytilde w) Ytilde^H)``,
   ``P = (Ytilde w) Y^H``, summed over T in two levels: float32 sums over
   short spans of frames, added across spans in float64, rounded to
-  complex64 once.  By default (``stats_backend='auto'`` or ``'xla'``)
-  as complex ``torch.matmul`` over 256-frame tiles added into complex128
+  complex64 once (:func:`stats_route` picks the route).  By default
+  (``stats_backend='auto'``) complex64 on a CUDA device takes one launch
+  of the statistics kernel
+  (:func:`~pb_chime5_tpu_torch.ops.kernels.wpe_stats.wpe_statistics`:
+  R's lower triangle and P, 64-frame float32 spans into float64
+  registers), then hermitized, as the JAX ``'pallas'`` backend does;
+  ``stats_backend='pallas'`` takes it on every device (its plain version
+  on the CPU).  Everything else -- 'auto' on the CPU or in complex128,
+  and ``stats_backend='xla'`` -- takes complex ``torch.matmul`` over
+  256-frame tiles added into complex128
   (:func:`~pb_chime5_tpu_torch.ops.kernels.wpe_stats.wpe_statistics_reference`;
   cuBLAS, IEEE float32 — TF32 is pinned off, see ``_device.py`` — the JAX
-  Pallas kernel's time tiles, with the cross-tile sum in float64); with
-  ``stats_backend='pallas'`` in one launch of the statistics kernel
-  (:func:`~pb_chime5_tpu_torch.ops.kernels.wpe_stats.wpe_statistics`:
-  64-frame float32 spans into float64 registers), then hermitized, as
-  the JAX ``'pallas'`` backend does.  One float32 sum over all T drifted
+  Pallas kernel's time tiles, with the cross-tile sum in float64;
+  complex128 as one matmul pair over all frames), which is also the
+  kernel's plain version.  One float32 sum over all T drifted
   4.75-5.97e-6 from the float64 sums on the stress scene (D = 24,
   T = 4191), and its second iteration's R fell past the 1e-4 load at 3
   frequencies, where the solve returned NaN; the tiles lie within
@@ -45,13 +51,13 @@ The rows are independent: a batch of B utterances runs as B * F rows,
 with its frame mask given per row, (B * F, T).
 
 ``chunk_size`` accumulates R and P over T-chunks of that many frames
-(into complex128, each chunk in the default route's tiles) and
+(into complex128, each chunk in the matmul route's tiles) and
 applies the filter chunk by chunk, so the (F, taps * D, T) stack is never
 materialized.  The chunked statistics are the complex matmuls for every
-``stats_backend``: with 'pallas' the statistics kernel is not launched,
-as the JAX package runs its XLA chunked statistics there; with 'auto'
-the JAX package uses its real-form chunked staircase, the same sums in
-another order.
+``stats_backend``: the statistics kernel is not launched, as the JAX
+package never runs its kernel with chunks (with 'pallas' it runs its XLA
+chunked statistics; with 'auto' its real-form chunked staircase, the
+same sums in another order).
 
 The JAX main path computes the statistics in a real-form tap-group
 staircase (``_real_form_stats``, ``stats_backend='real'``), a TPU
@@ -156,12 +162,28 @@ def _solve_G(R, P, regularization, refine=0):
     return hermitian_solve(R, P, relative_load=regularization, refine=refine)
 
 
-def _wpe_iteration(Y, Y_tilde, inv_power, regularization, stats_backend,
+def stats_route(backend, dtype, device_type, chunked):
+    """The WPE statistics' route for ``stats_backend`` ``backend`` on
+    observations of ``dtype`` on a device of type ``device_type``:
+    'chunked' (the chunked complex matmuls, whenever ``chunk_size`` is
+    given), 'kernel' (:func:`wpe_statistics`: 'pallas', and 'auto' for
+    complex64 on CUDA) or 'tiles' (:func:`wpe_statistics_reference`:
+    'xla', and 'auto' on the CPU or in complex128)."""
+    if chunked:
+        return 'chunked'
+    if backend == 'pallas' or (backend == 'auto'
+                               and dtype == torch.complex64
+                               and device_type == 'cuda'):
+        return 'kernel'
+    return 'tiles'
+
+
+def _wpe_iteration(Y, Y_tilde, inv_power, regularization, route,
                    solve_refine=0):
-    """One filter update.  Y (F, D, T), Y_tilde (F, taps*D, T),
+    """One filter update by the statistics ``route`` ('kernel' or
+    'tiles', :func:`stats_route`).  Y (F, D, T), Y_tilde (F, taps*D, T),
     inv_power (F, T) -> X (F, D, T)."""
-    stats = (wpe_statistics if stats_backend == 'pallas'
-             else wpe_statistics_reference)
+    stats = wpe_statistics if route == 'kernel' else wpe_statistics_reference
     R, P = stats(Y_tilde, Y, inv_power)
     G = _solve_G(hermitize(R), P, regularization, solve_refine)
     return Y - G.conj().transpose(-2, -1) @ Y_tilde
@@ -215,24 +237,28 @@ def wpe(Y, *, taps: int = 10, delay: int = 2, iterations: int = 3,
     (reference-exact in float64); ``frame_mask`` (T,) bool, or per row
     (F, T), excludes padded frames from the statistics and zeroes them in
     the output.
-    ``stats_backend``: 'auto' / 'xla' (complex matmuls) or 'pallas' (the
-    statistics kernel; complex64 only; not with ``chunk_size``); 'real'
-    is not ported.  ``solve_refine`` iterative-refinement steps on the
-    filter solve (see ``linalg.hermitian_solve``)."""
+    ``stats_backend``: 'auto' (the statistics kernel for complex64 on
+    CUDA, else the complex matmuls), 'xla' (the complex matmuls) or
+    'pallas' (the statistics kernel; complex64 only); with ``chunk_size``
+    each computes the chunked complex matmuls (:func:`stats_route`);
+    'real' is not ported.  ``solve_refine`` iterative-refinement steps on
+    the filter solve (see ``linalg.hermitian_solve``)."""
     if stats_backend == 'real':
         raise NotImplementedError(
             "stats_backend='real' (the TPU tap-group staircase) is not "
             "ported; 'auto' computes the same statistics")
     if stats_backend not in ('auto', 'xla', 'pallas'):
         raise ValueError(f'unknown stats_backend {stats_backend!r}')
-    if chunk_size is not None:
+    route = stats_route(stats_backend, Y.dtype, Y.device.type,
+                        chunk_size is not None)
+    if route == 'chunked':
         X = Y
         for _ in range(iterations):
             X = _chunked_wpe_iteration(
                 Y, get_power_inverse(X, psd_context, frame_mask), taps,
                 delay, regularization, chunk_size, frame_mask, solve_refine)
     else:
-        if stats_backend == 'pallas':
+        if route == 'kernel':
             Y = Y.contiguous()          # the kernel reads (F, D, T) rows
         Y_tilde = build_y_tilde(Y, taps, delay)
         if frame_mask is not None:
@@ -241,7 +267,7 @@ def wpe(Y, *, taps: int = 10, delay: int = 2, iterations: int = 3,
         for _ in range(iterations):
             X = _wpe_iteration(Y, Y_tilde,
                                get_power_inverse(X, psd_context, frame_mask),
-                               regularization, stats_backend, solve_refine)
+                               regularization, route, solve_refine)
     if frame_mask is not None:
         X = X * _frames(frame_mask).to(X.dtype)
     return X

@@ -17,8 +17,8 @@ tree), and the peak device memory those calls add above what the warm
 enhancer holds; then one default call under ``torch.profiler``: its CUDA kernel
 launches, memory copies and sets, the union of their device intervals
 (busy time) and the span from the first to the last; then the WPE
-statistics call alone, by the default route (``wpe_statistics_reference``)
-and by K2 (``wpe_statistics``), on ``chip_smoke.py``'s K2 inputs (F = 513,
+statistics call alone, by the tile route (``wpe_statistics_reference``,
+``wpe_stats_backend='xla'``) and by K2 (``wpe_statistics``, the default), on ``chip_smoke.py``'s K2 inputs (F = 513,
 dim = 240, D = 24) at the headline's T = 2504 and the stress scene's
 T = 4191: its time (``chip_smoke.cuda_ms``) and the peak device memory
 one call adds.  Each process prints one JSON line; the medians per tree
@@ -82,7 +82,7 @@ def statistics_calls(torch):
     import chip_smoke
     from pb_chime5_tpu_torch.ops.kernels import wpe_stats
     from tests.test_torch_kernels_cuda import wpe_inputs
-    routes = {'default': wpe_stats.wpe_statistics_reference,
+    routes = {'tiles': wpe_stats.wpe_statistics_reference,
               'k2': wpe_stats.wpe_statistics}
     F, T, D, _ = chip_smoke.HEADLINE
     out = {}

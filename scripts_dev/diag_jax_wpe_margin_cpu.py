@@ -15,7 +15,8 @@ smallest eigenvalue of the equilibrated R (against the 1e-4 load):
 
 * ``jax``: the JAX default statistics (``stats_backend='auto'``, the
   real-form tap-group staircase, ``Precision.HIGHEST``);
-* ``port``: the port's default route (256-frame tiles into complex128);
+* ``port``: the port's route on the CPU (256-frame tiles into
+  complex128, ``wpe_stats_backend='xla'`` on the card);
 * ``port_one_sum``: one complex64 matmul pair over all T, the port's
   route before the tiles (on the CPU, MKL's own blocking).
 

@@ -5,14 +5,15 @@ one card.
 
     python scripts_dev/diag_stress_wpe_card.py [--seconds 67] [--cpu-check]
 
-Runs the STFT and the default WPE on the card with the WPE solve's
-inputs and outputs captured (every iteration), then prints, per
+Runs the STFT and the float32 WPE by its tile route
+(``wpe_stats_backend='xla'``: cuBLAS over 256-frame tiles) on the card
+with the WPE solve's inputs and outputs captured (every iteration), then prints, per
 iteration, the frequencies whose power weights, R, P or filter G hold a
 non-finite value, and for the first bad system: its diagonal's range,
 the filter by K5 (``hermitian_solve_chol``), by its plain version on the
 card and by ``solve_floored`` (``cholesky_ex`` + ``cholesky_solve``),
 and each one's finiteness; then R of that iteration's bad systems by
-cuBLAS (the default), by K2 and with float64 sums, from the same inputs:
+cuBLAS (the tiles), by K2 (the default route) and with float64 sums, from the same inputs:
 each one's smallest eigenvalue after equilibration (against the relative
 load) and its distance from the float64 sums.  ``--cpu-check`` re-solves the first bad
 system's R, P on the CPU with the plain version; ``--save FILE`` keeps
@@ -55,7 +56,7 @@ def main():
     args = parser.parse_args()
     obs, _, _ = make_production_scene(np.random.default_rng(0),
                                       seconds=args.seconds)
-    config = GssConfig()
+    config = GssConfig(wpe_stats_backend='xla')
     O, fm, _ = _stft_and_mask(
         torch.from_numpy(obs.astype(np.float32)).cuda(), None, config)
     print(f'{torch.cuda.get_device_name(0)}; Obs {tuple(O.shape)}, '
@@ -132,7 +133,7 @@ def main():
     Yt, Yo, w = (x[bad] for x in stats_inputs[i])
     R64 = ((Yt.to(torch.complex128) * w[:, None, :].double())
            @ Yt.to(torch.complex128).conj().transpose(-2, -1))
-    forms = {'cuBLAS (the default)': real_stats(Yt, Yo, w)[0],
+    forms = {'cuBLAS (the tiles)': real_stats(Yt, Yo, w)[0],
              'K2': wpe_stats.wpe_statistics(Yt, Yo, w)[0],
              'float64 sums': R64}
     for name, Rx in forms.items():

@@ -15,7 +15,11 @@ Tolerances and their reasons:
   versions sum ~T float32 products per entry, in other orders (the
   kernel in t order per entry, cuBLAS in blocked order), and the kernel
   mirrors R's lower triangle where the plain version computes the upper
-  one.
+  one.  The WPE stage's default route (K2) against
+  ``wpe_stats_backend='xla'``: the first iteration's R and P under the
+  same gate; the stage's output within 1e-4 per frequency (three
+  1e-4-loaded solves amplify the statistics' rounding: two float32
+  summation orders read 4.6e-6 on the CPU); a batch's rows bit for bit.
 * K3 / K4 on well-conditioned HPD input (``random_hpd``): inverse
   relative Frobenius error per matrix <= 1e-5, logdet absolute <= 1e-4
   (float32 elimination with condition numbers ~1e2, FMA contraction in
@@ -57,7 +61,9 @@ import pytest
 import torch
 
 from pb_chime5_tpu_torch import _device
-from pb_chime5_tpu_torch.ops import cacgmm, linalg
+from pb_chime5_tpu_torch.models import gss
+from pb_chime5_tpu_torch.models.gss import GssConfig
+from pb_chime5_tpu_torch.ops import cacgmm, linalg, wpe
 from pb_chime5_tpu_torch.ops.kernels import chol_solve, gj_inverse, wpe_stats
 from pb_chime5_tpu_torch.ops.linalg import hermitize
 from pb_chime5_tpu_torch.ops.wpe import build_y_tilde, get_power_inverse
@@ -323,6 +329,97 @@ def test_wpe_stats_rejects_unsupported_inputs(cuda):
         with pytest.raises(ValueError):
             wpe_stats.wpe_statistics(*args)
     assert wpe_stats.wpe_statistics.launches == before
+
+
+def wpe_scene(F, D, T, *, seed, device):
+    """WPE's input (F, D, T) complex64 of ``wpe_inputs`` and its frame
+    mask (T,)."""
+    _, Y, _, valid = wpe_inputs(F, D, T, seed=seed, device=device)
+    return Y, torch.arange(T, device=device) < valid
+
+
+def captured_statistics(monkeypatch, name):
+    """Replaces ``ops/wpe.py``'s statistics entry ``name`` by one that
+    records each call's ((Y_tilde, Y, inv_power), (R, P)) in the returned
+    list."""
+    real = getattr(wpe, name)
+    calls = []
+
+    def stats(*args):
+        out = real(*args)
+        calls.append((args, out))
+        return out
+    monkeypatch.setattr(wpe, name, stats)
+    return calls
+
+
+# (label, GssConfig fields, compute dtype, K2 launches per WPE iteration)
+WPE_STAGE_ROUTES = [
+    ('default', {}, torch.complex64, 1),
+    ('chunked', dict(wpe_chunk_size=128), torch.complex64, 0),
+    ('float64', {}, torch.complex128, 0),
+]
+
+
+@pytest.mark.parametrize('label,fields,dtype,per_iteration',
+                         WPE_STAGE_ROUTES,
+                         ids=[r[0] for r in WPE_STAGE_ROUTES])
+def test_wpe_stage_launches_k2_on_the_default_path(cuda, label, fields,
+                                                   dtype, per_iteration):
+    """The default ``GssConfig()`` WPE stage on a complex64 scene takes
+    K2 once an iteration; with ``wpe_chunk_size`` or in float64 never."""
+    config = GssConfig(**fields)
+    Y, fm = wpe_scene(9, 24, 300, seed=30, device=cuda)
+    before = wpe_stats.wpe_statistics.launches
+    X = gss._wpe_stage(Y.to(dtype), config, fm)
+    torch.cuda.synchronize()
+    assert (wpe_stats.wpe_statistics.launches - before
+            == per_iteration * config.wpe_iterations)
+    assert X.dtype == dtype and torch.isfinite(X).all()
+
+
+def test_wpe_stage_default_route_matches_xla_route(cuda, monkeypatch):
+    """The default route (K2) against ``wpe_stats_backend='xla'`` (the
+    256-frame tiles) on the same scene: the first iteration's R and P
+    (the same inputs) within STATS_RTOL; the stage's output, which has
+    gone through three 1e-4-loaded solves, within SOLVE_F64_RTOL per
+    frequency (two float32 summation orders on the CPU: 4.6e-6)."""
+    Y, fm = wpe_scene(9, 24, 300, seed=31, device=cuda)
+    kernel = captured_statistics(monkeypatch, 'wpe_statistics')
+    tiles = captured_statistics(monkeypatch, 'wpe_statistics_reference')
+    X = gss._wpe_stage(Y, GssConfig(), fm)
+    assert len(kernel) == GssConfig().wpe_iterations and not tiles
+    X_ref = gss._wpe_stage(Y, GssConfig(wpe_stats_backend='xla'), fm)
+    assert len(tiles) == GssConfig().wpe_iterations
+    rel_R, rel_P, _ = stats_errors(*kernel[0][1], *tiles[0][1])
+    assert rel_R <= STATS_RTOL and rel_P <= STATS_RTOL, (rel_R, rel_P)
+    assert frobenius_errors(X, X_ref) <= SOLVE_F64_RTOL
+
+
+def test_wpe_stage_batch_rows_match_each_utterance(cuda, monkeypatch):
+    """A B = 2 batch (two utterances of other valid lengths, as B * F
+    rows with per-row frame masks) gives the first iteration's R and P
+    bit for bit as each utterance alone (whose inputs its rows hold bit
+    for bit): K2's rows are independent."""
+    F = 9
+    scenes = [wpe_scene(F, 24, 300, seed=seed, device=cuda)
+              for seed in (32, 33)]
+    scenes[1][1][250:] = False
+    calls = captured_statistics(monkeypatch, 'wpe_statistics')
+    for Y, fm in scenes:
+        gss._wpe_stage(Y, GssConfig(), fm)
+    gss._wpe_stage(torch.stack([Y for Y, _ in scenes]), GssConfig(),
+                   torch.stack([fm for _, fm in scenes]))
+    iterations = GssConfig().wpe_iterations
+    assert len(calls) == 3 * iterations
+    batch_inputs, batch_stats = calls[2 * iterations]
+    for b in range(2):
+        rows = slice(b * F, (b + 1) * F)
+        inputs, stats = calls[b * iterations]
+        for x_batch, x in zip(batch_inputs, inputs):
+            assert torch.equal(x_batch[rows], x)
+        for x_batch, x in zip(batch_stats, stats):
+            assert torch.equal(x_batch[rows], x)
 
 
 @pytest.mark.parametrize('entry', sorted(GJ_ENTRIES))

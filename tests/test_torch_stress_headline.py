@@ -5,7 +5,7 @@ The production shape: D = 24 channels (6 arrays x 4 mics), K = 5 classes
 (4 speakers + noise), F = 513, T = 4191 (> 4096), STFT 1024 / 256, WPE
 taps 10, delay 2, 3 iterations, cacGMM 20 + 1 iterations, MVDR-Souden +
 BAN: the port's float32 chain (the default ``GssConfig``: the 1e-4 WPE
-load, K1, ``em_finalize``, K5) against the float64 NumPy oracle of
+load, K1, ``em_finalize``, K5, and on the card K2) against the float64 NumPy oracle of
 ``tests/reference_numpy.py``, with the JAX test's three attributed
 measurements and its pins (WPE < 0.15, EM + beamformer on identical input
 at 2 + 0 < 0.03, the full chain < 0.6 and its SIR gain within 1 dB of

@@ -86,6 +86,66 @@ def test_pallas_backend_on_cpu_equals_the_matmul_statistics(rng):
     torch.testing.assert_close(a, b, rtol=0, atol=0)
 
 
+# the route of each backend, dtype and device without ``chunk_size``
+ROUTES = {
+    ('auto', 'complex64', 'cuda'): 'kernel',
+    ('auto', 'complex64', 'cpu'): 'tiles',
+    ('auto', 'complex128', 'cuda'): 'tiles',
+    ('auto', 'complex128', 'cpu'): 'tiles',
+    ('xla', 'complex64', 'cuda'): 'tiles',
+    ('xla', 'complex64', 'cpu'): 'tiles',
+    ('xla', 'complex128', 'cuda'): 'tiles',
+    ('xla', 'complex128', 'cpu'): 'tiles',
+    ('pallas', 'complex64', 'cuda'): 'kernel',
+    ('pallas', 'complex64', 'cpu'): 'kernel',
+    ('pallas', 'complex128', 'cuda'): 'kernel',
+    ('pallas', 'complex128', 'cpu'): 'kernel',
+}
+
+
+@pytest.mark.parametrize('chunked', [False, True],
+                         ids=['whole', 'chunked'])
+@pytest.mark.parametrize('case', sorted(ROUTES), ids='-'.join)
+def test_stats_route_table(case, chunked):
+    """'auto' takes the kernel for complex64 on CUDA, 'pallas' always
+    ('pallas' rejects complex128 in the kernel's wrapper), 'xla' never;
+    ``chunk_size`` takes the chunked matmuls whatever the backend."""
+    backend, dtype, device_type = case
+    route = port.stats_route(backend, getattr(torch, dtype), device_type,
+                             chunked)
+    assert route == ('chunked' if chunked else ROUTES[case])
+
+
+@pytest.mark.parametrize('chunk_size', [None, 40], ids=['whole', 'chunked'])
+@pytest.mark.parametrize('backend', ['auto', 'xla', 'pallas'])
+def test_wpe_takes_the_route_on_the_cpu(rng, monkeypatch, backend,
+                                        chunk_size):
+    """``wpe`` calls the statistics entry of its route once an iteration
+    (on the CPU 'auto' takes the tiles), and neither with ``chunk_size``;
+    the kernel's wrapper still launches nothing on the CPU."""
+    calls = {'wpe_statistics': 0, 'wpe_statistics_reference': 0}
+    for name in calls:
+        def counted(*args, name=name, real=getattr(port, name)):
+            calls[name] += 1
+            return real(*args)
+        monkeypatch.setattr(port, name, counted)
+    F, D, T = 3, 2, 100
+    Y = torch.from_numpy((rng.standard_normal((F, D, T))
+                          + 1j * rng.standard_normal((F, D, T)))
+                         .astype(np.complex64))
+    before = wpe_stats.wpe_statistics.launches
+    port.wpe(Y, taps=3, iterations=2, chunk_size=chunk_size,
+             stats_backend=backend)
+    name = {'auto': 'wpe_statistics_reference',
+            'xla': 'wpe_statistics_reference',
+            'pallas': 'wpe_statistics'}[backend]
+    expected = dict.fromkeys(calls, 0)
+    if chunk_size is None:
+        expected[name] = 2
+    assert calls == expected
+    assert wpe_stats.wpe_statistics.launches == before
+
+
 def test_wpe_rejects_unported_backends():
     Y = torch.zeros((2, 2, 10), dtype=torch.complex64)
     with pytest.raises(NotImplementedError):

@@ -6,8 +6,9 @@ frequencies (12, 68, 93) where one float32 sum over all T put the second
 WPE iteration's R past the 1e-4 load on the card; taps * D = 240.  On
 the second iteration's inputs:
 
-* the default route (``wpe_statistics_reference``: 256-frame tiles added
-  into complex128) lies within 1.2e-6 of complex128 sums of the same
+* the default route on the CPU, and ``wpe_stats_backend='xla'`` on the
+  card (``wpe_statistics_reference``: 256-frame tiles added into
+  complex128; on the card the default is K2), lies within 1.2e-6 of complex128 sums of the same
   inputs, R's and P's relative Frobenius distance per frequency: a fifth
   of the 4.75-5.97e-6 one float32 sum over all T gave on the card;
 * its tiles are what it sums: the tile products, added in complex128;
