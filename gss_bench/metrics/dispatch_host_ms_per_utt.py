@@ -10,11 +10,21 @@ recorded_spans()``, recorded over the window by
 first span the profiler saw (``profiled``, the calling thread's in the
 window's last seconds): the chains the stage metrics read, with none of
 the profiler's own cost.  A program without spans gives None; the other
-span metrics import ``kept`` and ``mean_ms`` from here."""
+span metrics import ``kept`` and ``mean_ms`` from here.  A cell on
+several cards reads the spans that its ranks kept, each at its own cut,
+all in one pool (the record's ``spans``, ``gss_bench/ranks.py``): a
+mean is then over every rank's spans."""
+
+import collections
+
+Kept = collections.namedtuple('Kept', 'name start_ns end_ns')
 
 
-def kept():
-    """The kept spans, or None where the program recorded none."""
+def kept(record):
+    """The kept spans, or None where the program recorded none: the
+    record's ``spans`` where it carries them, else the process's."""
+    if record.get('spans') is not None:
+        return [Kept(*s) for s in record['spans']]
     try:
         from pb_chime5_tpu_torch.utils.profiling import recorded_spans
     except ImportError:
@@ -27,9 +37,9 @@ def kept():
             and (cut is None or s.end_ns < cut)]
 
 
-def mean_ms(name):
+def mean_ms(record, name):
     """The mean duration of the kept spans ``name`` in ms, or None."""
-    spans = kept()
+    spans = kept(record)
     if spans is None:
         return None
     durations = [s.end_ns - s.start_ns for s in spans if s.name == name]
@@ -37,4 +47,4 @@ def mean_ms(name):
 
 
 def read(record):
-    return mean_ms('gss.dispatch')
+    return mean_ms(record, 'gss.dispatch')

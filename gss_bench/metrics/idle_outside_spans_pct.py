@@ -18,7 +18,7 @@ CALLING_THREAD = ('gss.session_setup', 'gss.prepare_wait', 'gss.dispatch',
 
 def read(record):
     trace = record['trace']
-    if not trace or trace['busy_s'] <= 0 or kept() is None:
+    if not trace or trace['busy_s'] <= 0 or kept(record) is None:
         return None
     idle = trace['window_s'] - trace['busy_s']
     if idle <= 0:

@@ -10,4 +10,4 @@ from gss_bench.metrics.dispatch_host_ms_per_utt import mean_ms
 
 
 def read(record):
-    return mean_ms('gss.prepare_wait')
+    return mean_ms(record, 'gss.prepare_wait')

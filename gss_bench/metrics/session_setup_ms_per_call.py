@@ -9,4 +9,4 @@ from gss_bench.metrics.dispatch_host_ms_per_utt import mean_ms
 
 
 def read(record):
-    return mean_ms('gss.session_setup')
+    return mean_ms(record, 'gss.session_setup')

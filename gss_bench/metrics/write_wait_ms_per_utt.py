@@ -10,7 +10,7 @@ from gss_bench.metrics.dispatch_host_ms_per_utt import kept
 
 
 def read(record):
-    spans = kept()
+    spans = kept(record)
     if spans is None:
         return None
     dispatched = sum(s.name == 'gss.dispatch' for s in spans)

@@ -22,6 +22,12 @@ seconds).  The last line of standard output is the result; the numbers
 compared, beside their limits, are the last lines of standard error and
 the last key of the result.  A run fails, and prints no result, without
 the card(s), or when JAX or the JAX package is loaded.
+
+A cell on N > 1 cards makes the corpus, the database and the libraries
+here, runs the window in one rank process a card (``gss_bench/ranks.py``),
+merges the ranks' records into one, and checks the WAVs of every rank
+here once the ranks have exited; it also compares the split
+(``ranks.split_rows``).  A rank that fails fails the run.
 """
 
 import time
@@ -60,8 +66,18 @@ def load_cell(bench, name):
                          f'{sorted(cells)}')
     cell = cells[name]
     config = _load_json(HERE / 'configs' / f"{cell['config']}.json")
-    traffic = _load_json(HERE / 'traffic' / f"{cell['traffic']}.json")
-    return cell, config, traffic
+    return cell, config, load_traffic(cell['traffic'])
+
+
+def load_traffic(name):
+    """The mix ``gss_bench/traffic/<name>.json``; one with a ``base`` is
+    that mix with its own keys put over it, so a mix that another deploys
+    differently (``processes``) holds no copy of its parameters."""
+    traffic = _load_json(HERE / 'traffic' / f'{name}.json')
+    if 'base' in traffic:
+        own = {k: v for k, v in traffic.items() if k != 'base'}
+        traffic = {**load_traffic(traffic['base']), **own}
+    return traffic
 
 
 def load_metric(name):
@@ -145,7 +161,7 @@ def _least_work(utterances, intervals, config, ids):
             'em': sum(per_id[i][1] for i in ids)}
 
 
-def _trace_summary(profiler, torch):
+def _trace_summary(profiler, torch, top=10):
     from gss_bench import trace
     device_type = torch.autograd.DeviceType.CUDA
     device_events, host_ops = [], []
@@ -158,35 +174,44 @@ def _trace_summary(profiler, torch):
     if not host_ops:
         return None
     span = (min(s for _, s, _ in host_ops), max(e for _, _, e in host_ops))
-    return trace.summarize(device_events, host_ops, span)
+    return trace.summarize(device_events, host_ops, span, top)
 
 
-def _measure(args, bench, cell, config, traffic, device, workdir, torch,
-             control=False):
-    """Set-up, window and check -> (result line, check rows); with
-    ``control`` (``gss_bench/calibrate.py``) the control is read beside
-    the program on the check's sample."""
-    from gss_bench import check, corpus, drive, reference
+def _session(args, config, traffic, device, workdir):
+    """The corpus from the seed and its database in ``workdir``; the
+    reference's reading of it -> (utterances, intervals)."""
+    from gss_bench import corpus, reference
     from pb_chime5_tpu_torch.database.create_json import create_database
     from pb_chime5_tpu_torch.io import dump_json
-    from pb_chime5_tpu_torch.models import gss
-    from pb_chime5_tpu_torch.models.enhancer import get_enhancer
-    from pb_chime5_tpu_torch.ops.kernels import _build
-
-    cuda = device == 'cuda'
-    session = config['session']
-    sid = session['session_id']
     corpus_root = workdir / 'CHiME5'
     corpus.make_session(corpus_root, config, traffic, args.seed, device)
     dump_json(create_database(corpus_root), workdir / 'chime5.json')
-    utterances, intervals = reference.load_session(corpus_root, config)
+    return reference.load_session(corpus_root, config)
+
+
+def ready_enhancer(workdir, config, device, utterances):
+    """``get_enhancer`` on the database in ``workdir``, warmed up."""
+    from pb_chime5_tpu_torch.models.enhancer import get_enhancer
     enhancer = get_enhancer(database_path=str(workdir / 'chime5.json'),
                             device=device, **_enhancer_kwargs(config))
     # at exact lengths each distinct length is a shape of its own: warm
     # the longest (the peak); with buckets, the session's own buckets
     lengths = (None if config['enhancer']['length_buckets']
                else [max(u.num_samples for u in utterances.values())])
-    enhancer.warmup(sid, lengths=lengths)
+    enhancer.warmup(config['session']['session_id'], lengths=lengths)
+    return enhancer
+
+
+def timed_window(args, traffic, config, utterances, intervals, enhancer,
+                 torch, cuda, drive_window, trace_top=10):
+    """The measured window, ``drive_window(window)``, with the profiler,
+    the stage times, the cache's counters and the allocator's peak around
+    it -> (record, window, builds in the window); the trace keeps its
+    ``trace_top`` device ops and idle gaps (None: all)."""
+    from gss_bench import drive
+    from pb_chime5_tpu_torch.models import gss
+    from pb_chime5_tpu_torch.ops.kernels import _build
+
     profiler = None
     if args.trace:
         activities = [torch.profiler.ProfilerActivity.CPU]
@@ -195,8 +220,6 @@ def _measure(args, bench, cell, config, traffic, device, workdir, torch,
         with torch.profiler.profile(activities=activities):
             pass                              # the profiler's first start
         profiler = torch.profiler.profile(activities=activities)
-    power = _power_limit_w() if cuda else None
-    audio_dir = workdir / 'enhanced'
     cache = getattr(enhancer, '_audio_cache', None)
     cache_before = dict(cache.stats) if cache is not None else None
     builds_before = dict(_build.stats)
@@ -208,13 +231,10 @@ def _measure(args, bench, cell, config, traffic, device, workdir, torch,
     with contextlib.ExitStack() as stack:
         stages = (stack.enter_context(gss.record_stage_times())
                   if args.trace else None)
-        drive.run(enhancer, sid, audio_dir, traffic, window,
-                  len(utterances))
+        drive_window(window)
     if cuda:
         torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated() if cuda else None
-    setup_s = window.start - _STARTED
-    written = window.written_in_window()
     ids_all = [e for _, e in window.written]
     # the chains read for the stage metrics: those written before the
     # profiled slice (the writer takes the chains in dispatch order, so
@@ -223,9 +243,10 @@ def _measure(args, bench, cell, config, traffic, device, workdir, torch,
                    else window.end)
     untraced = [(t, e) for t, e in window.written if t < traced_from]
     record = {
-        'window_s': args.seconds, 'setup_s': setup_s,
+        'window_s': args.seconds, 'setup_s': window.start - _STARTED,
         'block_s': window.end - window.start,
-        'written': [(t - window.start, e) for t, e in written],
+        'written': [(t - window.start, e)
+                    for t, e in window.written_in_window()],
         'written_all': len(ids_all),
         'emitted_s': {e: u.emitted_seconds for e, u in utterances.items()},
         'jobs_ms': ([(end - start) * 1e3 for start, end
@@ -241,38 +262,32 @@ def _measure(args, bench, cell, config, traffic, device, workdir, torch,
         'least': (_least_work(utterances, intervals, config,
                               [e for _, e in untraced])
                   if args.trace else None),
-        'trace': (_trace_summary(profiler, torch)
+        'trace': (_trace_summary(profiler, torch, trace_top)
                   if profiler is not None and window.trace_host_span
                   else None),
+        'traced_from_s': traced_from - window.start,
     }
     builds = {k: v - builds_before.get(k, 0) for k, v in _build.stats.items()}
+    return record, window, builds
+
+
+def _metrics(bench, workload, trace, record):
     metrics = {}
-    for entry in cell_metrics(bench, args.workload, args.trace):
+    for entry in cell_metrics(bench, workload, trace):
         value = load_metric(entry['name'])(record)
         if value is not None:
             metrics[entry['name']] = {'value': value, 'unit': entry['unit']}
-    device_info = {'platform': 'gpu' if cuda else 'cpu',
-                   'kind': torch.cuda.get_device_name(0) if cuda else 'cpu',
-                   'count': cell['chips'] if cuda else 1,
-                   'memory_peak_bytes': peak, 'power_limit_w': power}
-    breakdown = None
-    if record['trace'] is not None:
-        device_info['busy_s'] = record['trace']['busy_s']
-        device_info['window_s'] = record['trace']['window_s']
-        breakdown = {k: record['trace'][k]
-                     for k in ('device_ops', 'idle_gaps')}
-    jobs = record['jobs_ms']
-    print(f'cell {args.workload} seed {args.seed}: setup {setup_s:.3f} s, '
-          f'window {args.seconds} s (block {record["block_s"]:.3f} s), '
-          f'{len(written)} WAVs in the window of {window.dispatched} '
-          f'dispatched, builds in the window {builds}, power limit '
-          f'{power} W', file=sys.stderr)
+    return metrics
+
+
+def _print_rates(args, record):
     # the window's two halves apart: how steady the rate is inside a run
     half = args.seconds / 2
     halves = [sum(record['emitted_s'][e] for t, e in record['written']
                   if (t < half) == first) / half for first in (True, False)]
     print(f'xrt_emitted of the two halves: {halves[0]:.4f}, '
           f'{halves[1]:.4f}', file=sys.stderr)
+    jobs = record['jobs_ms']
     if jobs:
         import statistics
         print(f'jobs ended in the window: {len(jobs)}, median '
@@ -280,13 +295,16 @@ def _measure(args, bench, cell, config, traffic, device, workdir, torch,
               f'{load_metric("job_latency_p95_ms")(record):.3f} ms',
               file=sys.stderr)
 
-    del enhancer, cache, stages
-    gc.collect()
-    if cuda:
-        torch.cuda.empty_cache()
+
+def _judge(args, config, record, utterances, intervals, audio_dir, device,
+           control, extra=()):
+    """The check of the WAVs the window wrote (``gss_bench/check.py``) ->
+    (correct, [(name, value, limit)]); ``extra`` more rows compared."""
+    from gss_bench import check
+    session = config['session']
     correct_spec = config['correct']
     emitted = record['emitted_s']
-    written_ids = [e for _, e in written]
+    written_ids = [e for _, e in record['written']]
     sample = check.draw_sample(written_ids, emitted, args.seed,
                                correct_spec['sample'],
                                correct_spec['min_seconds'])
@@ -307,14 +325,124 @@ def _measure(args, bench, cell, config, traffic, device, workdir, torch,
             'program_errors': errs, 'control_errors': controls,
             'sensitivity': sensitivity}),
             file=sys.stderr)
-    correct, rows = check.verdict(values, correct_spec['limits'])
+    limits = dict(correct_spec['limits'])
+    for name, value, limit in extra:
+        values[name], limits[name] = value, limit
+    correct, rows = check.verdict(values, limits)
     for what, values_of in (('errors', errs),
                             ('float32 reference errors', sensitivity)):
         print(f'{what} of the {len(sample)} utterances checked: '
               + ', '.join(f'{e}={v if v is None else round(v, 6)}'
                           for e, v in values_of.items()), file=sys.stderr)
+    return correct, rows
+
+
+def _device_info(torch, cuda, count, peak, power, trace):
+    info = {'platform': 'gpu' if cuda else 'cpu',
+            'kind': torch.cuda.get_device_name(0) if cuda else 'cpu',
+            'count': count if cuda else 1,
+            'memory_peak_bytes': peak, 'power_limit_w': power}
+    breakdown = None
+    if trace is not None:
+        # a merged trace holds the sums over the cards: their mean
+        traced = trace.get('cards', 1)
+        info['busy_s'] = trace['busy_s'] / traced
+        info['window_s'] = trace['window_s'] / traced
+        breakdown = {k: trace[k] for k in ('device_ops', 'idle_gaps')}
+    return info, breakdown
+
+
+def _measure(args, bench, cell, config, traffic, device, workdir, torch,
+             control=False):
+    """Set-up, window and check -> (result line, check rows); with
+    ``control`` (``gss_bench/calibrate.py``) the control is read beside
+    the program on the check's sample."""
+    from gss_bench import drive
+
+    cuda = device == 'cuda'
+    sid = config['session']['session_id']
+    utterances, intervals = _session(args, config, traffic, device, workdir)
+    enhancer = ready_enhancer(workdir, config, device, utterances)
+    power = _power_limit_w() if cuda else None
+    audio_dir = workdir / 'enhanced'
+    record, window, builds = timed_window(
+        args, traffic, config, utterances, intervals, enhancer, torch, cuda,
+        lambda w: drive.run(enhancer, sid, audio_dir, traffic, w,
+                            len(utterances)))
+    metrics = _metrics(bench, args.workload, args.trace, record)
+    device_info, breakdown = _device_info(torch, cuda, cell['chips'],
+                                          record['peak_bytes'], power,
+                                          record['trace'])
+    print(f'cell {args.workload} seed {args.seed}: setup '
+          f'{record["setup_s"]:.3f} s, window {args.seconds} s (block '
+          f'{record["block_s"]:.3f} s), {len(record["written"])} WAVs in '
+          f'the window of {window.dispatched} dispatched, builds in the '
+          f'window {builds}, power limit {power} W', file=sys.stderr)
+    _print_rates(args, record)
+
+    del enhancer
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    correct, rows = _judge(args, config, record, utterances, intervals,
+                           audio_dir, device, control)
     line = result_line(correct, window.dispatched,
-                       window.dispatched - len(ids_all), metrics,
+                       window.dispatched - record['written_all'], metrics,
+                       device_info, breakdown, rows)
+    return line, rows
+
+
+def _measure_ranks(args, bench, cell, config, traffic, device, workdir,
+                   torch, control=False):
+    """A cell on ``chips`` cards: set-up here, one rank process a card
+    (``gss_bench/ranks.py``) for the window, then the merged record's
+    metrics and the check of the WAVs of every rank -> (result line,
+    check rows), or None where a rank failed."""
+    from gss_bench import ranks
+    from pb_chime5_tpu_torch.ops.kernels import _build
+
+    cuda = device == 'cuda'
+    marks = [('imports', time.perf_counter())]
+    utterances, intervals = _session(args, config, traffic, device, workdir)
+    marks.append(('corpus and database', time.perf_counter()))
+    # build the libraries once, here, not in every rank at once
+    _build.load_libraries(_build.HOST_LIBRARIES
+                          + (_build.LIBRARIES if cuda else ()))
+    if cuda:
+        torch.cuda.empty_cache()
+    power = _power_limit_w() if cuda else None
+    marks.append(('libraries', time.perf_counter()))
+    records = ranks.launch(args, cell['chips'], workdir, device,
+                           args.seconds + ranks.SETUP_LIMIT_S)
+    if records is None:
+        return None
+    record = ranks.merge(records)
+    record['setup_s'] = record['window_start'] - _STARTED
+    marks.append(('ranks to the window', record['window_start']))
+    print('set-up: ' + ', '.join(
+        f'{name} {end - start:.3f} s' for (name, end), start
+        in zip(marks, [_STARTED] + [t for _, t in marks])), file=sys.stderr)
+    record['emitted_s'] = {e: u.emitted_seconds
+                           for e, u in utterances.items()}
+    metrics = _metrics(bench, args.workload, args.trace, record)
+    device_info, breakdown = _device_info(torch, cuda, cell['chips'],
+                                          record['peak_bytes'], power,
+                                          record['trace'])
+    dispatched = sum(r['dispatched'] for r in records)
+    for r in records:
+        print(ranks.describe(r, record['emitted_s'], args.seconds),
+              file=sys.stderr)
+    print(f'cell {args.workload} seed {args.seed}: {len(records)} ranks, '
+          f'setup {record["setup_s"]:.3f} s, window {args.seconds} s '
+          f'(block {record["block_s"]:.3f} s), {len(record["written"])} '
+          f'WAVs in the window of {dispatched} dispatched, power limit '
+          f'{power} W', file=sys.stderr)
+    _print_rates(args, record)
+    correct, rows = _judge(args, config, record, utterances, intervals,
+                           workdir / 'enhanced', device, control,
+                           ranks.split_rows(records, utterances))
+    line = result_line(correct, dispatched,
+                       dispatched - record['written_all'], metrics,
                        device_info, breakdown, rows)
     return line, rows
 
@@ -336,12 +464,21 @@ def main(argv=None, *, device='cuda', control=False):
               f"torch.cuda.is_available() is {torch.cuda.is_available()}, "
               f"device_count() {torch.cuda.device_count()}", file=sys.stderr)
         return 2
+    if traffic.get('processes', 1) != cell['chips']:
+        print(f"cell {args.workload}: its traffic runs "
+              f"{traffic.get('processes', 1)} process(es), one a card, and "
+              f"the cell has {cell['chips']} card(s)", file=sys.stderr)
+        return 2
+    measure = _measure_ranks if cell['chips'] > 1 else _measure
     workdir = Path(tempfile.mkdtemp(prefix='gss_bench_'))
     try:
-        line, rows = _measure(args, bench, cell, config, traffic, device,
-                              workdir, torch, control)
+        measured = measure(args, bench, cell, config, traffic, device,
+                           workdir, torch, control)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+    if measured is None:
+        return 4
+    line, rows = measured
     found = forbidden_modules()
     if found:
         print(f'forbidden modules loaded: {found}', file=sys.stderr)

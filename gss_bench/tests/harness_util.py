@@ -10,10 +10,14 @@ import subprocess
 import sys
 from pathlib import Path
 
+from gss_bench import run
+
 REPO = Path(__file__).resolve().parents[2]
 BENCH = REPO / 'gss_bench'
 
 TINY_CELLS = ('tiny.session', 'tiny.jobs')
+# the tiny session on two ranks (``gss_bench/ranks.py``), on the CPU
+TINY_RANKS = 'tiny.ranks'
 TINY_METRIC = '''"""The WAVs written inside the window (a metric added as a file)."""
 
 
@@ -34,9 +38,9 @@ def tiny_config(**enhancer):
     return config
 
 
-def tiny_traffic(name):
-    traffic = json.loads((BENCH / 'traffic' / f'{name}.json').read_text())
-    traffic.update(rate_per_s=0.2, edge_s=1.0)
+def tiny_traffic(name, **own):
+    traffic = run.load_traffic(name)
+    traffic.update(rate_per_s=0.2, edge_s=1.0, **own)
     traffic['length'].update(mean_s=1.2, max_s=3.0)
     return traffic
 
@@ -48,10 +52,12 @@ def tiny_copy(root, **enhancer):
                     ignore=shutil.ignore_patterns('__pycache__', 'tests'))
     (root / 'gss_bench' / 'configs' / 'tiny.json').write_text(
         json.dumps(tiny_config(**enhancer)))
-    for traffic, name in (('s02_dense', 'tiny_session'),
-                          ('kaldi_jobs', 'tiny_jobs')):
+    for traffic, name, own in (('s02_dense', 'tiny_session', {}),
+                               ('kaldi_jobs', 'tiny_jobs', {}),
+                               ('s02_dense_4gpu', 'tiny_ranks',
+                                {'processes': 2})):
         (root / 'gss_bench' / 'traffic' / f'{name}.json').write_text(
-            json.dumps(tiny_traffic(traffic)))
+            json.dumps(tiny_traffic(traffic, **own)))
     (root / 'gss_bench' / 'metrics' / 'tiny_wavs.py').write_text(TINY_METRIC)
     bench = json.loads((REPO / 'BENCHMARK.json').read_text())
     bench['configs'].append({'name': 'tiny', 'source': 'a test',
@@ -61,11 +67,15 @@ def tiny_copy(root, **enhancer):
         {'name': 'tiny.session', 'config': 'tiny', 'traffic': 'tiny_session',
          'chips': 1, 'why': 'a test'},
         {'name': 'tiny.jobs', 'config': 'tiny', 'traffic': 'tiny_jobs',
-         'chips': 1, 'why': 'a test'}]
+         'chips': 1, 'why': 'a test'},
+        {'name': TINY_RANKS, 'config': 'tiny', 'traffic': 'tiny_ranks',
+         'chips': 2, 'why': 'a test'}]
     for metric in bench['per_layer']:
         metric['workloads'] += (['tiny.jobs']
                                 if metric['name'] == 'job_latency_p95_ms'
                                 else list(TINY_CELLS))
+        if 'chime5_multiarray.s02_dense_4gpu' in metric['workloads']:
+            metric['workloads'].append(TINY_RANKS)
     bench['per_layer'].append({
         'name': 'tiny_wavs', 'unit': 'count', 'better': 'higher',
         'source': 'host_clock', 'layer': 'session loop',
@@ -75,9 +85,13 @@ def tiny_copy(root, **enhancer):
 
 
 def run_cpu(root, workload, *, seed=2 ** 31 + 11, seconds=4, trace=0,
-            patch=''):
+            patch='', rank_patch=''):
     """One run of the copy's harness on the CPU, in a fresh process;
-    ``patch`` is Python run first (a planted fault)."""
+    ``patch`` is Python run first (a planted fault), ``rank_patch`` Python
+    that every process started from ``root`` runs first, the ranks'
+    included (``root/sitecustomize.py``)."""
+    if rank_patch:
+        (Path(root) / 'sitecustomize.py').write_text(rank_patch)
     code = (f'{patch}\nimport sys\nfrom gss_bench import run\n'
             f'sys.exit(run.main(["--workload", "{workload}", "--seed", '
             f'"{seed}", "--seconds", "{seconds}", "--trace", "{trace}"], '

@@ -5,9 +5,11 @@ end, and the runs that must fail.  The test marked ``cuda`` runs a cell on
 the card and skips without one."""
 
 import hashlib
+import json
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 import pytest
@@ -39,7 +41,22 @@ def test_corpus_same_seed_same_files(tmp_path):
                             for m in range(1, 5)]
 
 
-@pytest.mark.parametrize('traffic_name', ['s02_dense', 'kaldi_jobs'])
+def test_traffic_base_and_processes():
+    """A mix with a ``base`` is that mix with its own keys over it, and
+    every cell runs as many processes as it has cards."""
+    bench = json.loads((REPO / 'BENCHMARK.json').read_text())
+    base, four = run.load_traffic('s02_dense'), run.load_traffic(
+        's02_dense_4gpu')
+    assert 'base' not in four and four['processes'] == 4
+    assert {k: v for k, v in four.items() if k not in ('processes', 'why')} \
+        == {k: v for k, v in base.items() if k != 'why'}
+    for cell in bench['workloads']:
+        traffic = run.load_cell(bench, cell['name'])[2]
+        assert traffic.get('processes', 1) == cell['chips'], cell['name']
+
+
+@pytest.mark.parametrize('traffic_name',
+                         ['s02_dense', 'kaldi_jobs', 's02_dense_4gpu'])
 def test_traffic_density_and_lengths(traffic_name):
     """The cells' traffic: 0.45 utterances a second over 600 s, the same
     lengths on every seed (the distribution's quantiles, 2.6 s on
@@ -102,6 +119,63 @@ def test_window_closes_and_traces_its_last_seconds():
     start, stop = window.trace_host_span
     assert start >= window.deadline - 0.1 and stop >= window.deadline
     assert polls > 10
+
+
+def test_ranks_slice_starts_at_a_call_boundary(monkeypatch):
+    """On several cards the profiled slice starts at the first share's
+    end from which it ends before the deadline and the next one would
+    not (one and a half passes on), runs ``trace_seconds`` and is not
+    started again."""
+    now = [100.0]
+    monkeypatch.setattr(drive, 'time',
+                        types.SimpleNamespace(perf_counter=lambda: now[0]))
+
+    class Profiler:
+        def __init__(self):
+            self.calls = []
+
+        def start(self):
+            self.calls.append(('start', now[0]))
+
+        def stop(self):
+            self.calls.append(('stop', now[0]))
+
+    def at(t):
+        now[0] = 100.0 + t
+
+    profiler = Profiler()
+    window = drive.Window(45.0, profiler, trace_seconds=3.0)
+    window.open()
+    for end in (6.0, 12.0, 18.0, 24.0, 30.0):   # 30 + 1.5 x 6 + 3 < 45
+        at(end)
+        window.boundary()
+        assert window.poll() and profiler.calls == []
+    at(36.0)                                    # 36 + 9 + 3 > 45
+    window.boundary()
+    assert profiler.calls == [('start', 136.0)]
+    at(38.5)
+    assert window.poll() and len(profiler.calls) == 1
+    at(39.1)
+    assert window.poll()
+    assert profiler.calls == [('start', 136.0), ('stop', 139.1)]
+    at(42.0)
+    window.boundary()
+    at(43.0)
+    assert window.poll()
+    at(45.0)
+    assert not window.poll()
+    window.close()
+    assert len(profiler.calls) == 2
+    assert window.trace_host_span == (136.0, 139.1)
+    # a boundary too late for a whole slice: the window's last seconds
+    window = drive.Window(45.0, Profiler(), trace_seconds=3.0)
+    at(0.0)
+    window.open()
+    at(42.5)
+    window.boundary()
+    assert window.profiler.calls == []
+    at(42.6)
+    assert window.poll() and window.profiler.calls == [('start', 142.6)]
 
 
 def test_job_latency_p95_over_all_jobs():
@@ -254,14 +328,16 @@ def test_run_that_loads_jax_fails(tmp_path):
 
 @pytest.mark.cuda
 def test_cell_on_the_card():
-    """One short run of each cell on the card: it prints a correct line
-    with its end-to-end metrics."""
+    """One short run of each cell that the machine's cards hold: it prints
+    a correct line with its end-to-end metrics."""
     import torch
     if not torch.cuda.is_available():
         pytest.skip('needs a CUDA card')
     import json
     bench = json.loads((REPO / 'BENCHMARK.json').read_text())
-    for cell in bench['workloads']:
+    cells = [c for c in bench['workloads']
+             if c['chips'] <= torch.cuda.device_count()]
+    for cell in cells:
         proc = subprocess.run(
             [sys.executable, '-m', 'gss_bench.run', '--workload',
              cell['name'], '--seed', str(2 ** 31 + 101), '--seconds', '5',
@@ -271,6 +347,7 @@ def test_cell_on_the_card():
         assert proc.returncode == 0 and line is not None, proc.stderr[-3000:]
         assert line['correct'] is True, proc.stderr[-3000:]
         assert line['device']['platform'] == 'gpu'
+        assert line['device']['count'] == cell['chips']
         assert {'xrt_emitted', 'setup_s', 'peak_device_gib'} <= set(
             line['metrics'])
 
