@@ -1,4 +1,7 @@
-"""The traffic generator: one synthetic CHiME-5 session made from a seed.
+"""The traffic generator's shared part: one synthetic session's turns and
+array signals, made from a seed.  A deployment
+(``gss_bench/deployments/<name>.py``) lays them out as its corpus: file
+names, clocks and the transcription's times.
 
 A rewrite of ``pb_chime5_tpu_torch/testing/synthetic.py`` for production
 density.  The configuration fixes the deployment (session, speakers,
@@ -21,28 +24,23 @@ microphone records all speakers through room responses of its own (a
 direct path a few samples late, then an exponentially decaying noise
 tail of the array's reverberation time, 0.3-0.6 s, as loud as the direct
 path), plus sensor noise 20 dB below the mixture, at -25 dBFS RMS as
-PCM16; each array's clock runs ahead of the worn
-clock by its own drift and the transcription's array times carry a few
-samples of jitter, so the database's clock correction and equal start
-context have work to do.  Only the arrays the configuration reads are
-written; the transcription is the same for every configuration.  The
-signals are made with ``torch.Generator`` on the device the run uses, in
-a few large calls.
+PCM16; each array's recording starts ``offset`` samples before the
+session's clock, as its deployment's clock says.  The signals are made
+with ``torch.Generator`` on the device the run uses, in a few large
+calls.
 """
 
 import decimal
-import json
 import math
 import statistics
 import struct
-from pathlib import Path
 
 import numpy as np
 import torch
 
 __all__ = ['SAMPLE_RATE', 'utterance_lengths', 'place_turns',
-           'samples_to_time_str', 'write_pcm16', 'make_session',
-           'session_num_samples']
+           'samples_to_time_str', 'write_pcm16', 'session_turns',
+           'array_pcm16', 'session_num_samples']
 
 SAMPLE_RATE = 16000
 ENVELOPE = 400           # samples a step of a source's amplitude envelope
@@ -52,8 +50,6 @@ RT60 = (0.3, 0.6)        # s, the range of the arrays' reverberation times
 DIRECT_DELAY = 8         # samples, the largest direct-path delay
 SNR_DB = 20.0            # the mixture over the sensor noise
 LEVEL_DBFS = -25.0       # RMS of a recording
-JITTER = 3               # samples, each array time of the transcription
-DRIFT = (100, 500)       # samples, each array's clock ahead of the worn
 
 
 def session_num_samples(config):
@@ -163,66 +159,42 @@ def _room_responses(num_arrays, mics, num_speakers, seed, device):
     return rirs
 
 
-def make_session(root, config, traffic, seed, device):
-    """Write ``root/audio/<dataset>/<S>_<U>.CH<m>.wav`` for the arrays the
-    configuration reads and ``root/transcriptions/<dataset>/<S>.json``."""
-    session = config['session']
-    sid, dataset = session['session_id'], session['dataset']
-    speakers, arrays = session['speakers'], session['arrays']
-    mics = session['mics_per_array']
-    read = (arrays if config['enhancer']['multiarray']
-            else [session['reference_array']])
-    N = session_num_samples(config)
-    rng = np.random.default_rng([seed, 0])
+def session_turns(config, traffic, rng):
+    """The traffic's utterances placed in the configuration's session ->
+    [(speaker index, start, end)] sorted by start (``place_turns``)."""
     lengths = utterance_lengths(traffic, config['session_duration_s'])
-    turns = place_turns(rng, lengths, len(speakers), N,
-                        int(traffic['edge_s'] * SAMPLE_RATE))
-    drifts = {a: int(rng.integers(*DRIFT)) for a in arrays}
-    jitter = rng.integers(-JITTER, JITTER + 1, (len(turns), len(arrays), 2))
+    return place_turns(rng, lengths, len(config['session']['speakers']),
+                       session_num_samples(config),
+                       int(traffic['edge_s'] * SAMPLE_RATE))
 
-    root = Path(root)
-    audio_dir = root / 'audio' / dataset
-    trans_dir = root / 'transcriptions' / dataset
-    audio_dir.mkdir(parents=True, exist_ok=True)
-    trans_dir.mkdir(parents=True, exist_ok=True)
 
-    src = _sources(turns, len(speakers), N, seed, device)
-    rirs = _room_responses(len(arrays), mics, len(speakers), seed, device)
+def array_pcm16(config, turns, seed, device, offsets):
+    """Yield ``(array, pcm)`` for each array of ``offsets`` ({array: offset
+    in samples}) in the session's array order: the (mics, N + offset)
+    int16 recording of the speakers' ``turns`` whose mixture starts
+    ``offset`` samples in."""
+    session = config['session']
+    arrays, mics = session['arrays'], session['mics_per_array']
+    K, N = len(session['speakers']), session_num_samples(config)
+    src = _sources(turns, K, N, seed, device)
+    rirs = _room_responses(len(arrays), mics, K, seed, device)
     nfft = 1 << (N + rirs.shape[-1] - 1).bit_length()
     spectra = torch.fft.rfft(src, nfft)
     del src
     for a, array in enumerate(arrays):
-        if array not in read:
+        if array not in offsets:
             continue
         mix = torch.fft.irfft((torch.fft.rfft(rirs[a], nfft)
                                * spectra).sum(dim=1), nfft)[:, :N]
         rms = torch.sqrt((mix ** 2).mean())
-        drift = drifts[array]
-        out = torch.randn((mics, N + drift), device=device,
+        offset = offsets[array]
+        out = torch.randn((mics, N + offset), device=device,
                           generator=_generator(device, seed, 3, a)) \
             * (rms * 10 ** (-SNR_DB / 20))
-        out[:, drift:] += mix
+        out[:, offset:] += mix
         scale = 10 ** (LEVEL_DBFS / 20) * 2 ** 15 / torch.sqrt(
             (out ** 2).mean())
         pcm = torch.clamp(torch.round(out * scale), -2 ** 15,
                           2 ** 15 - 1).to(torch.int16).cpu().numpy()
         del mix, out
-        for m in range(mics):
-            write_pcm16(audio_dir / f'{sid}_{array}.CH{m + 1}.wav', pcm[m])
-    del spectra, rirs
-
-    trans = []
-    for i, (k, start, end) in enumerate(turns):
-        speaker = speakers[k]
-        times = [{'original': samples_to_time_str(t)} for t in (start, end)]
-        for side, t in enumerate((start, end)):
-            for p in speakers:
-                times[side][p] = samples_to_time_str(t)
-            for a, array in enumerate(arrays):
-                times[side][array] = samples_to_time_str(
-                    t + drifts[array] + int(jitter[i, a, side]))
-        trans.append({'session_id': sid, 'speaker': speaker,
-                      'words': f'utterance {i}', 'start_time': times[0],
-                      'end_time': times[1], 'location': session['location'],
-                      'ref': session['reference_array']})
-    (trans_dir / f'{sid}.json').write_text(json.dumps(trans, indent=1))
+        yield array, pcm

@@ -111,16 +111,11 @@ class Window:
         return [(s, e) for s, e in self.jobs if e <= self.deadline]
 
 
-def _session_time(ex):
-    """An utterance's position on the session timeline (its earliest
-    array start), the order the session-audio cache is filled in."""
-    return min(ex['start']['observation'].values())
-
-
-def _until_deadline(window, examples, cut=None):
-    """``examples`` in session time order, one at a time, until the
-    deadline; ``cut`` (a list) gets True if the deadline stopped them."""
-    for ex in sorted(examples, key=_session_time):
+def _until_deadline(window, examples, session_time, cut=None):
+    """``examples`` in session time order (``session_time(ex)``, the
+    deployment's clock), one at a time, until the deadline; ``cut`` (a
+    list) gets True if the deadline stopped them."""
+    for ex in sorted(examples, key=session_time):
         if not window.poll():
             if cut is not None:
                 cut.append(True)
@@ -129,12 +124,14 @@ def _until_deadline(window, examples, cut=None):
         yield ex
 
 
-def run(enhancer, session_id, audio_dir, traffic, window, num_utterances):
-    """Drive ``enhancer`` until ``window``'s deadline."""
+def run(enhancer, session_id, audio_dir, traffic, window, num_utterances,
+        session_time):
+    """Drive ``enhancer`` until ``window``'s deadline; a session call
+    enhances in ``session_time`` order."""
     from pb_chime5_tpu_torch.parallel.scheduler import serial_shard
 
     def deadline_shard(examples, _length_fn):
-        return _until_deadline(window, examples)
+        return _until_deadline(window, examples, session_time)
 
     window.open()
     if traffic['drive'] == 'session':
@@ -162,9 +159,10 @@ def run(enhancer, session_id, audio_dir, traffic, window, num_utterances):
 
 
 def run_rank(enhancer, session_id, audio_dir, traffic, window, start,
-             agree):
+             agree, session_time):
     """Drive ``enhancer`` on one rank of a process group until
-    ``window``'s deadline, from the ranks' common ``start``.  ``agree(open)``
+    ``window``'s deadline, from the ranks' common ``start``, each share in
+    ``session_time`` order.  ``agree(open)``
     is every rank's verdict on "the window is still open" (all true or
     none), taken before each call, so that no rank enters the program's
     collective at a call's start (``raise_together``) alone.  Each call's
@@ -180,7 +178,8 @@ def run_rank(enhancer, session_id, audio_dir, traffic, window, start,
 
     def rank_shard(examples, length_fn):
         yield from _until_deadline(
-            window, length_balanced_shard(examples, length_fn), cut)
+            window, length_balanced_shard(examples, length_fn),
+            session_time, cut)
         if not cut:
             window.boundary()
 

@@ -2,16 +2,17 @@
 worker a GPU): one rank process a card, joined in the program's gloo
 process group, each enhancing its share of every pass over the session.
 
-The parent (``gss_bench/run.py``) makes the corpus and the database and
-builds the program's libraries, then :func:`launch` starts the ranks:
+The parent (``gss_bench/run.py``) makes the corpus and builds the
+program's libraries, then :func:`launch` starts the ranks:
 
     python -m gss_bench.ranks --workload <cell> --seed <n> --seconds <s> \
         --trace <0|1> --workdir <dir> --device <cuda|cpu>
 
 with ``CUDA_VISIBLE_DEVICES`` its own card and ``MASTER_ADDR``,
 ``MASTER_PORT``, ``WORLD_SIZE`` and ``RANK`` set.  A rank joins through
-``pb_chime5_tpu_torch.parallel.distributed.maybe_initialize()``, readies
-its enhancer as a one-card run does, waits at a barrier, and takes rank
+``pb_chime5_tpu_torch.parallel.distributed.maybe_initialize()``, reads
+the corpus and readies its enhancer as a one-card run does (its database
+in ``<workdir>/database<r>``), waits at a barrier, and takes rank
 0's host clock as the common window start (``time.perf_counter()``, the
 host's monotonic clock, which every process shares), so every rank has
 the same deadline.  Each call takes the program's default split
@@ -39,7 +40,7 @@ import sys
 import time
 from pathlib import Path
 
-from gss_bench import drive, reference, run
+from gss_bench import drive, run
 from gss_bench.metrics.dispatch_host_ms_per_utt import kept
 
 __all__ = ['SETUP_LIMIT_S', 'launch', 'merge', 'describe', 'split_rows',
@@ -237,6 +238,7 @@ def main(argv=None):
     args = parser.parse_args(argv)
     bench = run._load_json(run.HERE.parent / 'BENCHMARK.json')
     _, config, traffic = run.load_cell(bench, args.workload)
+    deployment = run.load_deployment(config)
 
     import torch
     import torch.distributed as dist
@@ -248,9 +250,12 @@ def main(argv=None):
     cuda = args.device == 'cuda'
     workdir = Path(args.workdir)
     sid = config['session']['session_id']
-    utterances, intervals = reference.load_session(workdir / 'CHiME5',
-                                                   config)
-    enhancer = run.ready_enhancer(workdir, config, args.device, utterances)
+    root = workdir / deployment.corpus_dir
+    utterances, intervals = deployment.load_session(root, config)
+    database_dir = workdir / f'database{rank}'
+    database_dir.mkdir(exist_ok=True)
+    enhancer = run.ready_enhancer(deployment, database_dir, root, config,
+                                  args.device, utterances)
 
     def agree(is_open):
         flag = torch.tensor([int(is_open)], dtype=torch.int32)
@@ -262,7 +267,7 @@ def main(argv=None):
         start = torch.tensor([time.perf_counter()], dtype=torch.float64)
         dist.broadcast(start, src=0)
         drive.run_rank(enhancer, sid, workdir / 'enhanced', traffic, window,
-                       float(start.item()), agree)
+                       float(start.item()), agree, deployment.session_time)
 
     record, window, builds = run.timed_window(
         args, traffic, config, utterances, intervals, enhancer, torch, cuda,

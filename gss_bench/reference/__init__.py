@@ -1,11 +1,13 @@
-"""The plain reference of the benchmark: a CHiME-5 session's utterances
-enhanced by the GSS chain in plain PyTorch, from the corpus files alone.
+"""The plain reference of the benchmark: a session's utterances enhanced
+by the GSS chain in plain PyTorch, from the corpus files alone.
 
 It imports neither JAX nor the JAX package nor the program under test and
-takes nothing the program made: it reads the transcription JSON and the
-array WAVs, works out each utterance's spans, activity, context and trim
-(``session.py``) and runs the chain (``chain.py``) in float64, or as the
-TF32 control.
+takes nothing the program made: a deployment's ``load_session``
+(``gss_bench/deployments/<name>.py``) reads the transcription and the
+array WAVs into each utterance's spans, channels, context and trim
+(``session.py``'s :class:`Utterance`); the reference reads the
+observation and the activity from them and runs the chain (``chain.py``)
+in float64, or as the TF32 control.
 """
 
 import numpy as np
@@ -13,9 +15,9 @@ import torch
 
 from gss_bench.reference import chain, wav
 from gss_bench.reference.chain import Precision
-from gss_bench.reference.session import frame_activity, load_session
+from gss_bench.reference.session import frame_activity
 
-__all__ = ['Precision', 'load_session', 'chain_params', 'observation',
+__all__ = ['Precision', 'chain_params', 'observation',
            'enhance_utterance']
 
 

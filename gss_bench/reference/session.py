@@ -1,24 +1,17 @@
-"""The reference's own reading of a CHiME-5 session: from the
-transcription JSON and the array WAVs to, per utterance, the observation
-spans, the class activity, the context frames and the output trim.
-
-Written from the upstream recipe (pb_chime5 ``database.py``: the array
-clock's duration equalized to the worn clock's, ``AddContext`` with equal
-start context; ``activity.py``: per-speaker activity on each array's clock
-from the transcription's times, plus an always-active noise class;
-``core.py``: multi-array stacking in array order, the shortest array
-sets the length), with no code of the program under test.
+"""What the reference's readings of a session share, whatever the
+corpus's layout and clock: an utterance as the reference reads it
+(:class:`Utterance`), exact time strings, utterance ids, STFT frame
+counts and the class activity of an utterance's frames.  Each deployment
+reads its own corpus into them (``gss_bench/deployments/<name>.py``'s
+``load_session``), with no code of the program under test.
 """
 
 import dataclasses
 from decimal import Decimal
-from pathlib import Path
 
 import numpy as np
 
-from gss_bench.reference import wav
-
-__all__ = ['Utterance', 'load_session', 'to_samples', 'example_id',
+__all__ = ['SAMPLE_RATE', 'Utterance', 'to_samples', 'example_id',
            'stft_frames', 'frame_activity']
 
 SAMPLE_RATE = 16000
@@ -57,78 +50,6 @@ class Utterance:
     trim: tuple                  # (start, samples) of the emitted span
     context_frames: tuple        # (start, end) frames of context
     emitted_seconds: float
-
-
-def _adjust(worn, array):
-    """The array span's duration set to the worn span's, the difference
-    split over both ends."""
-    (ws, we), (s, e) = worn, array
-    worn_duration, array_duration = we - ws, e - s
-    delta = abs(worn_duration - array_duration)
-    if worn_duration > array_duration:
-        return s - delta // 2, e + (delta + 1) // 2
-    if worn_duration < array_duration:
-        return s + delta // 2, e - (delta + 1) // 2
-    return s, e
-
-
-def load_session(corpus_root, config):
-    """{example_id: :class:`Utterance`} and the per-speaker activity
-    intervals {array: {speaker: [(start, stop)]}} of the configuration's
-    session."""
-    session = config['session']
-    enhancer = config['enhancer']
-    sid, dataset = session['session_id'], session['dataset']
-    speakers = session['speakers']
-    ref = session['reference_array']
-    context = enhancer['context_samples']
-    size, shift = enhancer['stft_size'], enhancer['stft_shift']
-    audio_dir = Path(corpus_root) / 'audio' / dataset
-    present = sorted(a for a in session['arrays']
-                     if (audio_dir / f'{sid}_{a}.CH1.wav').exists())
-    stacked = present if enhancer['multiarray'] else [ref]
-    paths = {a: [audio_dir / f'{sid}_{a}.CH{m + 1}.wav'
-                 for m in range(session['mics_per_array'])] for a in present}
-    file_length = {a: min(wav.num_frames(p) for p in ps)
-                   for a, ps in paths.items()}
-
-    import json
-    trans = json.loads((Path(corpus_root) / 'transcriptions' / dataset
-                        / f'{sid}.json').read_text())
-    intervals = {a: {s: [] for s in speakers} for a in present}
-    utterances = {}
-    for entry in trans:
-        if entry['words'] == '[redacted]':
-            continue
-        start = {k: to_samples(v) for k, v in entry['start_time'].items()}
-        end = {k: to_samples(v) for k, v in entry['end_time'].items()}
-        speaker = entry['speaker']
-        for a in present:
-            intervals[a][speaker].append((start[a], end[a]))
-        worn = (start['original'], end['original'])
-        # every track of the example: the arrays (clock-equalized), the
-        # worn microphones and the original times
-        tracks = {a: _adjust(worn, (start[a], end[a])) for a in present}
-        tracks.update({p: (start[p], end[p]) for p in speakers})
-        tracks['original'] = worn
-        # equal start context: the context every track achieves
-        achieved = min(s - max(s - context, 0) for s, _ in tracks.values())
-        spans = [(a, max(tracks[a][0] - achieved, 0), tracks[a][1] + context)
-                 for a in stacked]
-        n = min(min(stop, file_length[a]) - begin for a, begin, stop in spans)
-        ref_start = max(tracks[ref][0] - achieved, 0)
-        eid = example_id(speaker, sid, *worn)
-        utterances[eid] = Utterance(
-            example_id=eid, speaker=speaker, target=speakers.index(speaker),
-            spans=spans, paths={a: paths[a] for a in stacked},
-            num_samples=n,
-            activity_span=(ref_start, tracks[ref][1] + context),
-            trim=(tracks[ref][0] - ref_start, worn[1] - worn[0]),
-            context_frames=(stft_frames(worn[0] - max(worn[0] - achieved, 0),
-                                        size, shift),
-                            stft_frames(context, size, shift)),
-            emitted_seconds=(worn[1] - worn[0]) / SAMPLE_RATE)
-    return utterances, intervals
 
 
 def frame_activity(utt, intervals, config):

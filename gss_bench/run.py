@@ -6,15 +6,21 @@
 from the repository root, on a machine with the card(s) the cell asks
 for.  Everything is found by name: the cell in ``BENCHMARK.json``'s
 ``workloads``, its configuration in ``gss_bench/configs/<config>.json``,
-its traffic in ``gss_bench/traffic/<traffic>.json`` and each metric in
+the configuration's deployment in
+``gss_bench/deployments/<deployment_module>.py`` (``chime5`` where it
+names none: the corpus's layout, the reference's reading of it, the
+program's database and enhancer factory, the session's clock), its
+traffic in ``gss_bench/traffic/<traffic>.json`` and each metric in
 ``gss_bench/metrics/<metric>.py`` (a ``read(record)`` that returns the
 value, or None where the run gives it nothing to read).
 
-Set-up (timed as ``setup_s``): the corpus from the seed in ``$TMPDIR``,
-the database, ``get_enhancer`` and ``Enhancer.warmup``, which builds and
-loads the program's libraries.  Then the window (``gss_bench/drive.py``),
-then the check of what it wrote against the float64 reference
-(``gss_bench/check.py``), once the program's state is freed.  With
+Set-up (timed as ``setup_s``): the deployment's corpus from the seed in
+``$TMPDIR`` and the reference's reading of it, the program's database and
+enhancer (the deployment's ``open_enhancer``) and ``Enhancer.warmup``,
+which builds and loads the program's libraries.  Then the window
+(``gss_bench/drive.py``), then the check of what it wrote against the
+float64 reference (``gss_bench/check.py``), once the program's state is
+freed.  With
 ``--trace 0`` the line reports the cell's end-to-end metrics, with
 ``--trace 1`` its per-layer ones (CUDA events per chain stage, the
 session-audio cache's counters and the profiler over the window's last
@@ -23,11 +29,11 @@ compared, beside their limits, are the last lines of standard error and
 the last key of the result.  A run fails, and prints no result, without
 the card(s), or when JAX or the JAX package is loaded.
 
-A cell on N > 1 cards makes the corpus, the database and the libraries
-here, runs the window in one rank process a card (``gss_bench/ranks.py``),
-merges the ranks' records into one, and checks the WAVs of every rank
-here once the ranks have exited; it also compares the split
-(``ranks.split_rows``).  A rank that fails fails the run.
+A cell on N > 1 cards makes the corpus and the libraries here, runs the
+window in one rank process a card (``gss_bench/ranks.py``; each rank
+writes its own database), merges the ranks' records into one, and checks
+the WAVs of every rank here once the ranks have exited; it also compares
+the split (``ranks.split_rows``).  A rank that fails fails the run.
 """
 
 import time
@@ -50,8 +56,8 @@ HERE = Path(__file__).resolve().parent
 FORBIDDEN = ('jax', 'jaxlib', 'flax', 'pb_chime5_tpu')
 TRACE_SECONDS = 3.0          # the profiled slice at the window's end
 
-__all__ = ['main', 'load_cell', 'load_metric', 'cell_metrics',
-           'forbidden_modules', 'result_line']
+__all__ = ['main', 'load_cell', 'load_metric', 'load_deployment',
+           'cell_metrics', 'forbidden_modules', 'result_line']
 
 
 def _load_json(path):
@@ -80,14 +86,26 @@ def load_traffic(name):
     return traffic
 
 
-def load_metric(name):
-    """The reader ``gss_bench/metrics/<name>.py``'s ``read``."""
-    path = HERE / 'metrics' / f'{name}.py'
+def _load_module(folder, name):
+    """The module ``gss_bench/<folder>/<name>.py``, loaded by its path."""
     spec = importlib.util.spec_from_file_location(
-        f'gss_bench_metric_{name.replace(".", "_")}', path)
+        f'gss_bench_{folder}_{name.replace(".", "_")}',
+        HERE / folder / f'{name}.py')
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
-    return module.read
+    return module
+
+
+def load_metric(name):
+    """The reader ``gss_bench/metrics/<name>.py``'s ``read``."""
+    return _load_module('metrics', name).read
+
+
+def load_deployment(config):
+    """The configuration's deployment, ``gss_bench/deployments/<name>.py``
+    of its ``deployment_module`` (``chime5`` where it names none)."""
+    return _load_module('deployments',
+                        config.get('deployment_module', 'chime5'))
 
 
 def cell_metrics(bench, cell_name, trace):
@@ -126,16 +144,6 @@ def _power_limit_w():
         return float(out.strip().splitlines()[0])
     except (OSError, subprocess.SubprocessError, ValueError, IndexError):
         return None
-
-
-def _enhancer_kwargs(config):
-    import numpy as np
-    kwargs = dict(config['enhancer'])
-    kwargs['compute_dtype'] = np.dtype(kwargs.get('compute_dtype',
-                                                  'float32')).type
-    if 'length_buckets' in kwargs and kwargs['length_buckets'] is not None:
-        kwargs['length_buckets'] = tuple(kwargs['length_buckets'])
-    return kwargs
 
 
 def _least_work(utterances, intervals, config, ids):
@@ -177,23 +185,18 @@ def _trace_summary(profiler, torch, top=10):
     return trace.summarize(device_events, host_ops, span, top)
 
 
-def _session(args, config, traffic, device, workdir):
-    """The corpus from the seed and its database in ``workdir``; the
+def _session(args, deployment, config, traffic, device, workdir):
+    """The deployment's corpus from the seed in ``workdir``; the
     reference's reading of it -> (utterances, intervals)."""
-    from gss_bench import corpus, reference
-    from pb_chime5_tpu_torch.database.create_json import create_database
-    from pb_chime5_tpu_torch.io import dump_json
-    corpus_root = workdir / 'CHiME5'
-    corpus.make_session(corpus_root, config, traffic, args.seed, device)
-    dump_json(create_database(corpus_root), workdir / 'chime5.json')
-    return reference.load_session(corpus_root, config)
+    root = workdir / deployment.corpus_dir
+    deployment.write_corpus(root, config, traffic, args.seed, device)
+    return deployment.load_session(root, config)
 
 
-def ready_enhancer(workdir, config, device, utterances):
-    """``get_enhancer`` on the database in ``workdir``, warmed up."""
-    from pb_chime5_tpu_torch.models.enhancer import get_enhancer
-    enhancer = get_enhancer(database_path=str(workdir / 'chime5.json'),
-                            device=device, **_enhancer_kwargs(config))
+def ready_enhancer(deployment, workdir, root, config, device, utterances):
+    """The deployment's enhancer on the corpus at ``root``, its database
+    in ``workdir``, warmed up."""
+    enhancer = deployment.open_enhancer(workdir, root, config, device)
     # at exact lengths each distinct length is a shape of its own: warm
     # the longest (the peak); with buckets, the session's own buckets
     lengths = (None if config['enhancer']['length_buckets']
@@ -361,14 +364,18 @@ def _measure(args, bench, cell, config, traffic, device, workdir, torch,
 
     cuda = device == 'cuda'
     sid = config['session']['session_id']
-    utterances, intervals = _session(args, config, traffic, device, workdir)
-    enhancer = ready_enhancer(workdir, config, device, utterances)
+    deployment = load_deployment(config)
+    utterances, intervals = _session(args, deployment, config, traffic,
+                                     device, workdir)
+    enhancer = ready_enhancer(deployment, workdir,
+                              workdir / deployment.corpus_dir, config,
+                              device, utterances)
     power = _power_limit_w() if cuda else None
     audio_dir = workdir / 'enhanced'
     record, window, builds = timed_window(
         args, traffic, config, utterances, intervals, enhancer, torch, cuda,
         lambda w: drive.run(enhancer, sid, audio_dir, traffic, w,
-                            len(utterances)))
+                            len(utterances), deployment.session_time))
     metrics = _metrics(bench, args.workload, args.trace, record)
     device_info, breakdown = _device_info(torch, cuda, cell['chips'],
                                           record['peak_bytes'], power,
@@ -403,8 +410,9 @@ def _measure_ranks(args, bench, cell, config, traffic, device, workdir,
 
     cuda = device == 'cuda'
     marks = [('imports', time.perf_counter())]
-    utterances, intervals = _session(args, config, traffic, device, workdir)
-    marks.append(('corpus and database', time.perf_counter()))
+    utterances, intervals = _session(args, load_deployment(config), config,
+                                     traffic, device, workdir)
+    marks.append(('corpus', time.perf_counter()))
     # build the libraries once, here, not in every rank at once
     _build.load_libraries(_build.HOST_LIBRARIES
                           + (_build.LIBRARIES if cuda else ()))

@@ -1,7 +1,8 @@
 """A tiny copy of the benchmark for CPU tests: the repository's
-``gss_bench`` plus a configuration, two traffic mixes, a metric and their
-cells, added as files and entries only, as a later change would add
-them."""
+``gss_bench`` plus a CHiME-5 configuration, a CHiME-6 track-1 deployment
+(``chime6_track1.py``) and its configuration, three traffic mixes, a
+metric and their cells, added as files and entries only, as a later
+change would add them."""
 
 import json
 import os
@@ -18,6 +19,10 @@ BENCH = REPO / 'gss_bench'
 TINY_CELLS = ('tiny.session', 'tiny.jobs')
 # the tiny session on two ranks (``gss_bench/ranks.py``), on the CPU
 TINY_RANKS = 'tiny.ranks'
+# the CHiME-6 deployment's session, jobs and two-rank cells
+CHIME6_CELLS = ('tiny_chime6.session', 'tiny_chime6.jobs')
+CHIME6_RANKS = 'tiny_chime6.ranks'
+CHIME6_SOURCE = BENCH / 'tests' / 'chime6_track1.py'
 TINY_METRIC = '''"""The WAVs written inside the window (a metric added as a file)."""
 
 
@@ -38,6 +43,29 @@ def tiny_config(**enhancer):
     return config
 
 
+def tiny_chime6_config():
+    """The tiny session as CHiME-6 track 1 deploys it: the
+    ``chime6_track1`` deployment, each array's outer microphones; two
+    arrays (D = 4), so that the CPU runs it in seconds."""
+    config = tiny_config(multiarray='outer_array_mics')
+    config.update(name='tiny_chime6', deployment_module='chime6_track1')
+    config['session']['arrays'] = ['U01', 'U02']
+    # the configuration's own sample, not tiny_config's 4: a median of
+    # four reads off the one or two ill-conditioned utterances that a short
+    # window may write
+    config['correct']['sample'] = json.loads(
+        (BENCH / 'configs' / 'chime5_single_array.json').read_text()
+    )['correct']['sample']
+    return config
+
+
+def write_chime6_deployment(root, source=None):
+    """``chime6_track1.py`` (or ``source``) as the copy ``root``'s
+    deployment ``chime6_track1``."""
+    (Path(root) / 'gss_bench' / 'deployments' / 'chime6_track1.py') \
+        .write_text(CHIME6_SOURCE.read_text() if source is None else source)
+
+
 def tiny_traffic(name, **own):
     traffic = run.load_traffic(name)
     traffic.update(rate_per_s=0.2, edge_s=1.0, **own)
@@ -52,6 +80,9 @@ def tiny_copy(root, **enhancer):
                     ignore=shutil.ignore_patterns('__pycache__', 'tests'))
     (root / 'gss_bench' / 'configs' / 'tiny.json').write_text(
         json.dumps(tiny_config(**enhancer)))
+    (root / 'gss_bench' / 'configs' / 'tiny_chime6.json').write_text(
+        json.dumps(tiny_chime6_config()))
+    write_chime6_deployment(root)
     for traffic, name, own in (('s02_dense', 'tiny_session', {}),
                                ('kaldi_jobs', 'tiny_jobs', {}),
                                ('s02_dense_4gpu', 'tiny_ranks',
@@ -60,22 +91,23 @@ def tiny_copy(root, **enhancer):
             json.dumps(tiny_traffic(traffic, **own)))
     (root / 'gss_bench' / 'metrics' / 'tiny_wavs.py').write_text(TINY_METRIC)
     bench = json.loads((REPO / 'BENCHMARK.json').read_text())
-    bench['configs'].append({'name': 'tiny', 'source': 'a test',
-                             'file': 'gss_bench/configs/tiny.json',
-                             'reduced': [], 'why': 'a test'})
-    bench['workloads'] += [
-        {'name': 'tiny.session', 'config': 'tiny', 'traffic': 'tiny_session',
-         'chips': 1, 'why': 'a test'},
-        {'name': 'tiny.jobs', 'config': 'tiny', 'traffic': 'tiny_jobs',
-         'chips': 1, 'why': 'a test'},
-        {'name': TINY_RANKS, 'config': 'tiny', 'traffic': 'tiny_ranks',
-         'chips': 2, 'why': 'a test'}]
+    for name in ('tiny', 'tiny_chime6'):
+        bench['configs'].append({'name': name, 'source': 'a test',
+                                 'file': f'gss_bench/configs/{name}.json',
+                                 'reduced': [], 'why': 'a test'})
+        bench['workloads'] += [
+            {'name': f'{name}.session', 'config': name,
+             'traffic': 'tiny_session', 'chips': 1, 'why': 'a test'},
+            {'name': f'{name}.jobs', 'config': name, 'traffic': 'tiny_jobs',
+             'chips': 1, 'why': 'a test'},
+            {'name': f'{name}.ranks', 'config': name,
+             'traffic': 'tiny_ranks', 'chips': 2, 'why': 'a test'}]
     for metric in bench['per_layer']:
-        metric['workloads'] += (['tiny.jobs']
-                                if metric['name'] == 'job_latency_p95_ms'
-                                else list(TINY_CELLS))
+        jobs_only = metric['name'] == 'job_latency_p95_ms'
+        metric['workloads'] += [c for c in TINY_CELLS + CHIME6_CELLS
+                                if c.endswith('.jobs') or not jobs_only]
         if 'chime5_multiarray.s02_dense_4gpu' in metric['workloads']:
-            metric['workloads'].append(TINY_RANKS)
+            metric['workloads'] += [TINY_RANKS, CHIME6_RANKS]
     bench['per_layer'].append({
         'name': 'tiny_wavs', 'unit': 'count', 'better': 'higher',
         'source': 'host_clock', 'layer': 'session loop',

@@ -18,7 +18,8 @@ import json
 
 import pytest
 
-from gss_bench import check, corpus, reference
+from gss_bench import check, reference
+from gss_bench.deployments import chime5
 from gss_bench.tests.harness_util import (
     BENCH, result, run_cpu, tiny_copy, tiny_traffic)
 
@@ -61,8 +62,8 @@ def test_control_is_not_correct(tmp_path, config_name, duration):
     traffic['length'].update(mean_s=3.5, min_s=3.0, max_s=5.0)
     traffic['rate_per_s'] = 0.15
     root = tmp_path / 'CHiME5'
-    corpus.make_session(root, config, traffic, 2 ** 31 + 21, 'cpu')
-    utterances, intervals = reference.load_session(root, config)
+    chime5.write_corpus(root, config, traffic, 2 ** 31 + 21, 'cpu')
+    utterances, intervals = chime5.load_session(root, config)
     ids = sorted(e for e, u in utterances.items()
                  if u.emitted_seconds >= config['correct']['min_seconds'])
     assert len(ids) >= 3

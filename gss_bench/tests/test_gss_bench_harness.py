@@ -10,11 +10,13 @@ import subprocess
 import sys
 import time
 import types
+from pathlib import Path
 
 import numpy as np
 import pytest
 
 from gss_bench import corpus, drive, run, trace
+from gss_bench.deployments import chime5
 from gss_bench.tests.harness_util import (
     REPO, result, run_cpu, tiny_config, tiny_copy, tiny_traffic)
 
@@ -31,7 +33,7 @@ def test_corpus_same_seed_same_files(tmp_path):
     config, traffic = tiny_config(), tiny_traffic('s02_dense')
     seeds = (2 ** 31 + 3, 2 ** 31 + 3, 2 ** 31 + 4)
     for i, seed in enumerate(seeds):
-        corpus.make_session(tmp_path / str(i), config, traffic, seed, 'cpu')
+        chime5.write_corpus(tmp_path / str(i), config, traffic, seed, 'cpu')
     first, again, other = (digest(tmp_path / str(i)) for i in range(3))
     assert first == again
     assert set(first) == set(other)
@@ -256,6 +258,14 @@ def test_benchmark_json_names_files_that_exist():
         assert callable(run.load_metric(metric['name']))
     for config in bench['configs']:
         assert (REPO / config['file']).exists()
+        deployment = run.load_deployment(
+            json.loads((REPO / config['file']).read_text()))
+        assert Path(deployment.__file__).parent == REPO / 'gss_bench' \
+            / 'deployments'
+        for name in ('write_corpus', 'load_session', 'open_enhancer',
+                     'session_time'):
+            assert callable(getattr(deployment, name)), name
+        assert isinstance(deployment.corpus_dir, str)
 
 
 @pytest.mark.parametrize('workload, trace_flag, seconds', [

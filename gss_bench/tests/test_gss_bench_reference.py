@@ -30,7 +30,8 @@ import numpy as np
 import pytest
 import torch
 
-from gss_bench import check, corpus, reference
+from gss_bench import check, reference
+from gss_bench.deployments import chime5
 from gss_bench.reference import chain, session, wav
 from gss_bench.tests import oracle_numpy
 
@@ -62,8 +63,8 @@ def small_traffic():
 def make_scene(name, tmp_path_factory):
     config = small(name)
     root = tmp_path_factory.mktemp(name) / 'CHiME5'
-    corpus.make_session(root, config, small_traffic(), 2 ** 31 + 5, 'cpu')
-    utterances, intervals = reference.load_session(root, config)
+    chime5.write_corpus(root, config, small_traffic(), 2 ** 31 + 5, 'cpu')
+    utterances, intervals = chime5.load_session(root, config)
     return config, root, utterances, intervals
 
 
@@ -151,29 +152,17 @@ def test_reference_matches_oracle_chain(single_scene):
 def port_session(config, root, tmp, compute_dtype):
     """The port's enhancer over the whole session (exact lengths, as the
     configurations run it) -> its output directory."""
-    from pb_chime5_tpu_torch.database.create_json import create_database
-    from pb_chime5_tpu_torch.io import dump_json
-    from pb_chime5_tpu_torch.models.enhancer import get_enhancer
     from pb_chime5_tpu_torch.parallel.scheduler import serial_shard
-    from gss_bench.run import _enhancer_kwargs
-    dump_json(create_database(root), tmp / 'db.json')
-    kwargs = _enhancer_kwargs(config)
-    kwargs['compute_dtype'] = compute_dtype
-    enhancer = get_enhancer(database_path=str(tmp / 'db.json'),
-                            device='cpu', **kwargs)
+    config = json.loads(json.dumps(config))
+    config['enhancer']['compute_dtype'] = compute_dtype
+    enhancer = chime5.open_enhancer(tmp, root, config, 'cpu')
     enhancer.enhance_session('S02', tmp / 'out', shard_fn=serial_shard)
     return enhancer, tmp / 'out' / 'dev'
 
 
 def test_session_reading_matches_port(scene, tmp_path):
     config, root, utterances, intervals = scene
-    from pb_chime5_tpu_torch.database.create_json import create_database
-    from pb_chime5_tpu_torch.io import dump_json
-    from pb_chime5_tpu_torch.models.enhancer import get_enhancer
-    from gss_bench.run import _enhancer_kwargs
-    dump_json(create_database(root), tmp_path / 'db.json')
-    enhancer = get_enhancer(database_path=str(tmp_path / 'db.json'),
-                            device='cpu', **_enhancer_kwargs(config))
+    enhancer = chime5.open_enhancer(tmp_path, root, config, 'cpu')
     ref_array = config['session']['reference_array']
     seen = set()
     for ex in enhancer.get_iterator('S02'):
@@ -198,7 +187,7 @@ def test_reference_matches_port_exact_float64(single_scene, tmp_path):
     D = 24 the float64 MVDR solve of a short utterance is ill-conditioned,
     see the module's docstring)."""
     config, root, utterances, intervals = single_scene
-    _, out = port_session(config, root, tmp_path, np.float64)
+    _, out = port_session(config, root, tmp_path, 'float64')
     params_config = json.loads(json.dumps(config))
     params_config['reference']['mvdr_load'] = 64 * EPS64
     for eid, utt in utterances.items():
@@ -258,9 +247,28 @@ def loaded_top_level(code):
 
 
 def test_reference_loads_neither_jax_nor_the_program():
+    """The reference, and the deployments' corpus and reading: CHiME-5's
+    (the module imported, and loaded by its path as a run loads it) and
+    the CHiME-6 test deployment's."""
     names = loaded_top_level(
         'import gss_bench.reference, gss_bench.reference.chain, '
-        'gss_bench.reference.session, gss_bench.reference.wav')
+        'gss_bench.reference.session, gss_bench.reference.wav\n'
+        'import tempfile\n'
+        'from pathlib import Path\n'
+        'from gss_bench import run\n'
+        'from gss_bench.deployments import chime5\n'
+        'from gss_bench.tests import chime6_track1\n'
+        'from gss_bench.tests.harness_util import tiny_chime6_config, '
+        'tiny_config, tiny_traffic\n'
+        'config = tiny_config()\n'
+        'with tempfile.TemporaryDirectory() as tmp:\n'
+        '    for module, config in ((chime5, config), '
+        '(run.load_deployment(config), config), '
+        '(chime6_track1, tiny_chime6_config())):\n'
+        '        root = Path(tmp) / module.__name__\n'
+        '        module.write_corpus(root, config, tiny_traffic('
+        '"s02_dense"), 3, "cpu")\n'
+        '        assert module.load_session(root, config)[0]\n')
     assert 'torch' in names
     assert not names & (FORBIDDEN | {'pb_chime5_tpu_torch'})
 
