@@ -52,7 +52,8 @@
 //     double-buffered: the copy of the rank's next chunk overlaps the work
 //     on this one;
 //   * a chunk without a valid frame is skipped; a frame with fm == 0 (its
-//     gamma is exactly 0) gets no responsibilities and no M-step update;
+//     gamma is exactly 0) gets no responsibilities and a zero M-step
+//     coefficient, which adds exactly 0 (z is finite; rows past T are 0);
 //   * E-step: a register tile of 4 rows r = k D + d of P z x 4 frames per
 //     thread (a warp: 16 rows x the chunk's 32 frames), so that per column
 //     8 shared-memory loads feed 64 FMAs: the shared-memory bytes and the
@@ -62,11 +63,31 @@
 //   * responsibilities: q (the row terms summed over d in order) and log q
 //     per (class, frame) on K warps, then one thread per frame over K in
 //     registers;
-//   * M-step: a thread keeps 6 features x all K classes in registers,
-//     forms the features of its frame group's frames (t mod G) from z and
-//     accumulates them in frame order; the update of a class whose
-//     coefficient is exactly 0 (act == 0, or gamma underflowed) is
-//     skipped, a branch uniform across the block;
+//   * M-step: a rank-1 update per frame.  A thread owns a block of the
+//     lower triangle of z z^H, kMRows rows a x C columns b, all K classes
+//     in registers: per frame it loads the block's kMRows + C z entries
+//     once and forms its kMRows C complex products (2 features each), so
+//     that at 2 x 3 four z loads and two of the coefficients feed 60 FMAs
+//     of the update, where a thread of 6 features (3 products, two z loads
+//     each) fed 30 with 8 loads and left the M-step bound by shared-memory
+//     loads.  Frame group g takes the frames t = g (mod G) in frame order,
+//     two at a time; a class whose coefficients are all exactly 0 in the
+//     chunk (act == 0, or gamma underflowed) is skipped, a branch uniform
+//     across the block;
+//   * the M-step's tile by instantiation (ptxas -v; CTAs an SM from the
+//     occupancy calculator; PERF.md has the timings):
+//       MAXD 24: 2 x 3, 56 blocks at D = 24 (2 warps a group, 4 groups);
+//                128 registers, 148 B of spill stores, 2 CTAs an SM
+//       MAXD 16: 2 x 2, 21 blocks at D = 12 (1 warp, 8 groups);
+//                128 registers, 48 B of spill stores, 2 CTAs an SM
+//       MAXD 8:  2 x 2, 3 blocks at D = 4 (1 warp, 8 groups);
+//                128 registers, 44 B of spill stores, 2 CTAs an SM
+//     The spills sit outside the E-step's and the M-step's loops (the
+//     prologue and the responsibilities).  2 x 3 at MAXD 24: 2 x 2 there
+//     took 2% longer.  MAXD 8 takes the block tile too: at D = 4 the
+//     kernel with it took 0.41 ms where 6 features a thread took 0.51 (8
+//     frame groups where there were 4, on the few threads D = 4 gives the
+//     M-step);
 //   * the G group partials and then the rank partials of S (over
 //     distributed shared memory) are summed in a fixed order: one launch,
 //     no atomics, no order that depends on scheduling, so the result is
@@ -96,25 +117,49 @@ constexpr int kTile = 4;        // E-step: rows x frames of a thread's tile
 constexpr int kWarpRows = 16;   // E-step: rows of P z per warp
 constexpr int kRowStride = 34;  // row terms: conflict-free tile stores
 constexpr int kCPad = 8;        // coefficients per frame, a float4 + 1
-constexpr int kMFeat = 6;       // M-step: features per thread, even
-constexpr int kMSlots = kMFeat / 2;   // M-step: feature pairs per thread
-constexpr int kMaxGroups = 4;   // M-step frame groups
+constexpr int kMRows = 2;       // M-step: rows a of a thread's block
+constexpr int kMFrames = 2;     // M-step: frames a thread loads together
+constexpr int kMaxGroups = 8;   // M-step frame groups
 static_assert(kWarpRows * kChunk == 32 * kTile * kTile,
               "a warp's lanes tile its rows x the chunk's frames");
 static_assert(kMaxK == 5, "the M-step loads a frame's coefficients as "
                           "one float4 and one float");
 
+// M-step: columns b of a thread's block, by the instantiation: 3 at
+// MAXD 24, 2 below
+__host__ __device__ constexpr int m_cols(int MAXD) {
+  return MAXD > 16 ? 3 : 2;
+}
+
+// Blocks of kMRows x C that cover the lower triangle (b <= a) of z z^H,
+// D x D: the blocks of the grid that hold at least one b <= a; row i of
+// blocks, and all of them
+__host__ __device__ constexpr int row_blocks(int i, int D, int C) {
+  const int last = (kMRows * i + kMRows - 1) / C;
+  const int cols = (D + C - 1) / C;
+  return (last < cols ? last : cols - 1) + 1;
+}
+
+__host__ __device__ constexpr int mstep_blocks(int D, int C) {
+  int n = 0;
+  for (int i = 0; kMRows * i < D; ++i) n += row_blocks(i, D, C);
+  return n;
+}
+
 // Dynamic shared memory, in floats; every region starts at a multiple of
-// 4.  MAXD: the instantiation's bound on D (even); the P and z row strides
-// are MAXD + 1 (odd: the tile's loads are conflict-free) and fixed, so the
-// E-step's loads sit at fixed offsets from one pointer.
+// 4.  MAXD: the instantiation's bound on D (even); the P row stride is
+// MAXD + 1 (odd: the tile's row loads are conflict-free), the z row stride
+// MAXD + 2 (even: every z row starts at 16 bytes, so the M-step loads two
+// entries at once; the E-step's 8 frames still fall on distinct banks),
+// both fixed, so the E-step's loads sit at fixed offsets from one pointer.
 struct Layout {
   int nf;      // D^2 features
   int nfp;     // nf rounded up to 4
   int prows;   // E-step rows: K D rounded up to whole warps
+  int blocks;  // M-step blocks of one frame group, a thread each
   int gwarps;  // warps of one M-step frame group
   int groups;  // M-step frame groups
-  int p, z, act, fm, row, ql, c, total;
+  int p, z, act, fm, row, ql, c, dacc, mask, total;
 };
 
 // den, lw and ld (3 x kCPad) come first; at the end the partial S
@@ -126,16 +171,19 @@ __host__ __device__ constexpr Layout layout(int D, int K, int MAXD) {
   L.nf = D * D;
   L.nfp = (L.nf + 3) / 4 * 4;
   L.prows = (K * D + kWarpRows - 1) / kWarpRows * kWarpRows;
-  L.gwarps = (L.nfp + 32 * kMFeat - 1) / (32 * kMFeat);
+  L.blocks = mstep_blocks(D, m_cols(MAXD));
+  L.gwarps = (L.blocks + 31) / 32;
   L.groups = kWarps / L.gwarps < kMaxGroups ? kWarps / L.gwarps : kMaxGroups;
   L.p = kSumAt;                                  // prows x (MAXD + 1) float2
-  L.z = L.p + L.prows * (MAXD + 1) * 2;          // 2 x kChunk x (MAXD + 1)
-  L.act = L.z + 2 * kChunk * (MAXD + 1) * 2;     // 2 x kMaxK x kChunk
+  L.z = L.p + L.prows * (MAXD + 1) * 2;          // 2 x kChunk x (MAXD + 2)
+  L.act = L.z + 2 * kChunk * (MAXD + 2) * 2;     // 2 x kMaxK x kChunk
   L.fm = L.act + 2 * kMaxK * kChunk;             // 2 x kChunk
   L.row = L.fm + 2 * kChunk;                     // prows x kRowStride
   L.ql = L.row + L.prows * kRowStride;           // 2 x kMaxK x kChunk
   L.c = L.ql + 2 * kMaxK * kChunk;               // kChunk x kCPad
-  const int end = L.c + kChunk * kCPad;
+  L.dacc = L.c + kChunk * kCPad;                 // kMaxK x kChunk
+  L.mask = L.dacc + kMaxK * kChunk;              // 1 (of 4)
+  const int end = L.mask + 4;
   const int sum = kSumAt + L.groups * K * L.nfp;
   L.total = end > sum ? end : sum;
   return L;
@@ -155,6 +203,13 @@ __device__ __forceinline__ void cp_async8(void* dst, const void* src) {
                : "memory");
 }
 
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src)
+               : "memory");
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -163,36 +218,22 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-// Code of feature pair h (features 2h, 2h + 1) of the layout: a (bits
-// 0-7), b (bits 8-15), kind (bits 16-23) 0: Re, Im of z_a conj(z_b),
-// a > b, the pairs of the lower triangle in row-major order; 1: |z_a|^2,
-// |z_b|^2; 2: |z_a|^2 and a padding feature; 3: two padding features.
-// Padding features (a = b = 0) are finite and never written out.
-__device__ inline int feature_code(int h, int D) {
-  const int j = 2 * h;
-  if (j < D * (D - 1)) {
-    int a = 1;
-    while ((a + 1) * a / 2 <= h) ++a;
-    return a | (h - a * (a - 1) / 2) << 8;
+// N consecutive entries z_e0 .. z_e0+N-1 of a z row; e0 a multiple of N:
+// an even N loads them two at a time (16-byte aligned)
+template <int N>
+__device__ __forceinline__ void load_run(const float2* zt, int e0,
+                                         float2 (&v)[N]) {
+  if constexpr (N % 2 == 0) {
+#pragma unroll
+    for (int i = 0; i < N; i += 2) {
+      const float4 w = *reinterpret_cast<const float4*>(zt + e0 + i);
+      v[i] = make_float2(w.x, w.y);
+      v[i + 1] = make_float2(w.z, w.w);
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < N; ++i) v[i] = zt[e0 + i];
   }
-  if (j < D * D) {
-    const int a = j - D * (D - 1);
-    return a + 1 < D ? a | (a + 1) << 8 | 1 << 16 : a | 2 << 16;
-  }
-  return 3 << 16;
-}
-
-// Features 2h, 2h + 1 of one frame, from its z row and the pair's code.
-// Branch-free: the selects pick the operands, so the loads of many pairs
-// can be in flight at once.
-__device__ __forceinline__ float2 features2(const float2* zt, int code) {
-  const bool off = (code >> 16) == 0;
-  const float2 za = zt[code & 0xff];
-  const float2 zb = zt[(code >> 8) & 0xff];
-  const float2 w = off ? zb : za;
-  const float m1 = off ? za.y : zb.x;
-  const float m2 = off ? -za.x : zb.y;
-  return make_float2(fmaf(za.x, w.x, za.y * w.y), fmaf(m1, zb.x, m2 * zb.y));
 }
 
 // MAXD: register bound on D (8, 16 or 24)
@@ -209,7 +250,10 @@ fused_em_kernel(const float2* __restrict__ z,      // (F, T, D)
                 int T, int D, int K, int fper) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
-  constexpr int dp = MAXD + 1;   // row strides of P and z, in float2
+  constexpr int dp = MAXD + 1;   // row stride of P, in float2
+  constexpr int zs = MAXD + 2;   // row stride of z, in float2
+  constexpr int mc = m_cols(MAXD);
+  constexpr int mfeat = 2 * kMRows * mc;   // M-step: features per thread
   const Layout L = layout(D, K, MAXD);
   float* sDen = smem;
   float* sLw = smem + kCPad;
@@ -222,6 +266,9 @@ fused_em_kernel(const float2* __restrict__ z,      // (F, T, D)
   float* sQ = smem + L.ql;                  // 1 / q per (class, frame)
   float* sLp = sQ + kMaxK * kChunk;         // log-pdf per (class, frame)
   float* sC = smem + L.c;
+  float* sDacc = smem + L.dacc;   // den's partial per (class, lane)
+  // bit k: class k has a coefficient that is not 0 in the chunk
+  unsigned* sMask = reinterpret_cast<unsigned*>(smem + L.mask);
 
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
@@ -235,17 +282,35 @@ fused_em_kernel(const float2* __restrict__ z,      // (F, T, D)
   const float* act = act_all + (size_t)(f / fper) * K * T;
   const float* fm = fm_all + (size_t)(f / fper) * T;
   const int nchunks = (T + kChunk - 1) / kChunk;
+  // z rows in pieces of 16 bytes where every row starts at 16 bytes, else
+  // of 8: a warp copies `per` rows at once, lane l piece `piece` of row
+  // `prow` of them
+  const bool pairs =
+      D % 2 == 0 && (reinterpret_cast<size_t>(z) & 15) == 0;
+  const int pieces = pairs ? D / 2 : D;
+  const int per = 32 / pieces;
+  const int prow = lane / pieces;
+  const int piece = (lane - prow * pieces) * (pairs ? 2 : 1);
 
-  // chunk c's z rows, act columns and fm into buffer buf; fm is 0 past T
+  // chunk c's z rows, act columns and fm into buffer buf; z rows and fm
+  // are 0 past T (every z row the M-step reads is finite)
   auto fetch = [&](int c, int buf) {
     if (c < nchunks) {
       const int t0 = c * kChunk;
       const int tc = min(kChunk, T - t0);
-      float2* dz = sZ + buf * kChunk * dp;
+      float2* dz = sZ + buf * kChunk * zs;
       const float2* src = zf + (size_t)t0 * D;
-      for (int i = tid; i < tc * D; i += kThreads) {
-        const int t = i / D;
-        cp_async8(dz + t * dp + (i - t * D), src + i);
+      for (int t = warp * per + prow; prow < per && t < kChunk;
+           t += kWarps * per) {
+        float2* dst = dz + t * zs + piece;
+        if (t >= tc) {
+          dst[0] = make_float2(0.f, 0.f);
+          if (pairs) dst[1] = make_float2(0.f, 0.f);
+        } else if (pairs) {
+          cp_async16(dst, src + t * D + piece);
+        } else {
+          cp_async8(dst, src + t * D + piece);
+        }
       }
       float* da = sAct + buf * kMaxK * kChunk;
       for (int i = tid; i < K * kChunk; i += kThreads) {
@@ -279,23 +344,25 @@ fused_em_kernel(const float2* __restrict__ z,      // (F, T, D)
     sLd[tid] = ld[f * K + tid];
   }
 
-  // M-step: this thread's kMFeat features (from column j0) in frame group
-  // grp, which takes the frames t = grp (mod groups)
+  // M-step: this thread's block, rows a0 .. a0 + kMRows - 1 x columns
+  // b0 .. b0 + mc - 1 of z z^H, in frame group grp, which takes the
+  // frames t = grp (mod groups); block n of the group in row-major order
   const int grp = warp / L.gwarps;
-  const int j0 = (tid - grp * L.gwarps * 32) * kMFeat;
-  const bool mown = grp < L.groups && j0 < L.nfp;
-  int code[kMSlots];
+  int n = tid - grp * L.gwarps * 32;
+  const bool mown = grp < L.groups && n < L.blocks;
+  int a0 = 0;
+  if (mown)
+    for (int i = 0; n >= row_blocks(i, D, mc); ++i) {
+      n -= row_blocks(i, D, mc);
+      a0 += kMRows;
+    }
+  const int b0 = mc * n;
+  float macc[kMaxK][mfeat];
 #pragma unroll
-  for (int s = 0; s < kMSlots; ++s) code[s] = feature_code(j0 / 2 + s, D);
-  float macc[kMaxK][kMFeat], dacc[kMaxK];   // dacc: warp 0
+  for (int k = 0; k < kMaxK; ++k)
 #pragma unroll
-  for (int k = 0; k < kMaxK; ++k) {
-#pragma unroll
-    for (int i = 0; i < kMFeat; ++i) macc[k][i] = 0.f;
-    dacc[k] = 0.f;
-  }
-  for (int i = tid; i < kChunk * kCPad; i += kThreads)
-    sC[i] = 0.f;   // the coefficients of classes past K stay 0
+    for (int i = 0; i < mfeat; ++i) macc[k][i] = 0.f;
+  for (int i = tid; i < kMaxK * kChunk; i += kThreads) sDacc[i] = 0.f;
 
   int it = 0;
   for (int c = rank; c < nchunks; c += kCluster, ++it) {
@@ -319,7 +386,7 @@ fused_em_kernel(const float2* __restrict__ z,      // (F, T, D)
       const int r0 = kWarpRows * warp + kTile * (lane >> 3);
       const int fq = lane & 7;
       const float2* prow = sP + r0 * dp;
-      const float2* zq = sZ + (buf * kChunk + fq) * dp;   // frame fq
+      const float2* zq = sZ + (buf * kChunk + fq) * zs;   // frame fq
       float vr[kTile][kTile], vi[kTile][kTile];
 #pragma unroll
       for (int i = 0; i < kTile; ++i)
@@ -330,7 +397,7 @@ fused_em_kernel(const float2* __restrict__ z,      // (F, T, D)
 #pragma unroll
         for (int i = 0; i < kTile; ++i) p[i] = prow[i * dp + e];
 #pragma unroll
-        for (int j = 0; j < kTile; ++j) x[j] = zq[8 * j * dp + e];
+        for (int j = 0; j < kTile; ++j) x[j] = zq[8 * j * zs + e];
 #pragma unroll
         for (int i = 0; i < kTile; ++i) {
 #pragma unroll
@@ -350,16 +417,17 @@ fused_em_kernel(const float2* __restrict__ z,      // (F, T, D)
         for (int e = 0; e < MAXD; ++e)
           if (e < D) column(e);
       }
+      int d = r0 % D;   // row r0 + i is row d of its class
 #pragma unroll
       for (int i = 0; i < kTile; ++i) {
         const int r = r0 + i;
-        const int d = r - r / D * D;
 #pragma unroll
         for (int j = 0; j < kTile; ++j) {
-          const float2 zd = zq[8 * j * dp + d];
+          const float2 zd = zq[8 * j * zs + d];
           sRow[r * kRowStride + fq + 8 * j] =
               fmaf(zd.y, vi[i][j], zd.x * vr[i][j]);
         }
+        d = d + 1 == D ? 0 : d + 1;
       }
     }
     __syncthreads();
@@ -379,59 +447,94 @@ fused_em_kernel(const float2* __restrict__ z,      // (F, T, D)
 
     // responsibilities, one frame per lane of warp 0, over K in
     // registers; sC[t][k] = gamma / q (products with correctly rounded
-    // reciprocals: a short dependent chain)
-    if (warp == 0 && ((valid >> lane) & 1u)) {
-      const float* actc = sAct + buf * kMaxK * kChunk;
-      float rq[kMaxK], g[kMaxK];
-      float mx = -INFINITY;
+    // reciprocals: a short dependent chain), 0 for a frame that is not
+    // valid and for a class past K; the chunk's class mask
+    if (warp == 0) {   // responsibilities
+      float ck[kMaxK] = {};
+      if ((valid >> lane) & 1u) {
+        const float* actc = sAct + buf * kMaxK * kChunk;
+        float rq[kMaxK], g[kMaxK];
+        float mx = -INFINITY;
 #pragma unroll
-      for (int k = 0; k < kMaxK; ++k) {
-        if (k < K) {
-          rq[k] = sQ[k * kChunk + lane];
-          g[k] = sLp[k * kChunk + lane];
-          mx = fmaxf(mx, g[k]);
+        for (int k = 0; k < kMaxK; ++k) {
+          if (k < K) {
+            rq[k] = sQ[k * kChunk + lane];
+            g[k] = sLp[k * kChunk + lane];
+            mx = fmaxf(mx, g[k]);
+          }
+        }
+        float sum = 0.f;
+#pragma unroll
+        for (int k = 0; k < kMaxK; ++k) {
+          if (k < K) {
+            g[k] = expf(g[k] - mx) * actc[k * kChunk + lane];
+            sum += g[k];
+          }
+        }
+        const float rnorm = __frcp_rn(fmaxf(sum, tiny));
+#pragma unroll
+        for (int k = 0; k < kMaxK; ++k) {
+          if (k < K) {
+            const float gk = g[k] * rnorm * fmt;
+            sDacc[k * kChunk + lane] += gk;
+            ck[k] = gk * rq[k];
+          }
         }
       }
-      float sum = 0.f;
+      unsigned mask = 0u;
 #pragma unroll
       for (int k = 0; k < kMaxK; ++k) {
-        if (k < K) {
-          g[k] = expf(g[k] - mx) * actc[k * kChunk + lane];
-          sum += g[k];
-        }
+        sC[lane * kCPad + k] = ck[k];
+        if (__any_sync(0xffffffffu, ck[k] != 0.f)) mask |= 1u << k;
       }
-      const float rnorm = __frcp_rn(fmaxf(sum, tiny));
-#pragma unroll
-      for (int k = 0; k < kMaxK; ++k) {
-        if (k < K) {
-          const float gk = g[k] * rnorm * fmt;
-          dacc[k] += gk;
-          sC[lane * kCPad + k] = gk * rq[k];
-        }
-      }
+      if (lane == 0) *sMask = mask;
     }
     __syncthreads();
 
-    // M-step, in frame order; a zero coefficient adds nothing
+    // M-step, in frame order: the block's rank-1 update from its rows'
+    // and columns' z entries, loaded once a frame (features 2 (i C + j)
+    // and 2 (i C + j) + 1: Re and Im of z_a conj(z_b)), kMFrames frames
+    // t0 + u groups loaded together (kChunk / groups is a multiple of
+    // kMFrames: groups <= 8).  A class whose coefficients are all 0 in
+    // the chunk is skipped, a branch uniform across the block; in the
+    // others a zero coefficient adds an exact 0 (the features are finite)
     if (mown) {
-      for (int t = grp; t < kChunk; t += L.groups) {
-        if (!((valid >> t) & 1u)) continue;
-        const float4 c0 = *reinterpret_cast<const float4*>(sC + t * kCPad);
-        const float ck[kMaxK] = {c0.x, c0.y, c0.z, c0.w, sC[t * kCPad + 4]};
-        const float2* zt = sZ + (buf * kChunk + t) * dp;
-        float x[kMFeat];
+      const unsigned mask = *sMask;
+      for (int t0 = grp; t0 < kChunk; t0 += kMFrames * L.groups) {
+        float ck[kMFrames][kMaxK], x[kMFrames][mfeat];
 #pragma unroll
-        for (int s = 0; s < kMSlots; ++s) {
-          const float2 v = features2(zt, code[s]);
-          x[2 * s] = v.x;
-          x[2 * s + 1] = v.y;
+        for (int u = 0; u < kMFrames; ++u) {
+          const int t = t0 + u * L.groups;
+          const float4 c0 =
+              *reinterpret_cast<const float4*>(sC + t * kCPad);
+          ck[u][0] = c0.x;
+          ck[u][1] = c0.y;
+          ck[u][2] = c0.z;
+          ck[u][3] = c0.w;
+          ck[u][4] = sC[t * kCPad + 4];
+          const float2* zt = sZ + (buf * kChunk + t) * zs;
+          float2 za[kMRows], zb[mc];
+          load_run(zt, a0, za);
+          load_run(zt, b0, zb);
+#pragma unroll
+          for (int i = 0; i < kMRows; ++i) {
+#pragma unroll
+            for (int j = 0; j < mc; ++j) {
+              const int h = 2 * (i * mc + j);
+              x[u][h] = fmaf(za[i].x, zb[j].x, za[i].y * zb[j].y);
+              x[u][h + 1] = fmaf(za[i].y, zb[j].x, -za[i].x * zb[j].y);
+            }
+          }
         }
 #pragma unroll
         for (int k = 0; k < kMaxK; ++k) {
-          if (ck[k] != 0.f) {   // 0 past K
+          if ((mask >> k) & 1u) {
 #pragma unroll
-            for (int i = 0; i < kMFeat; ++i)
-              macc[k][i] = fmaf(ck[k], x[i], macc[k][i]);
+            for (int u = 0; u < kMFrames; ++u) {
+#pragma unroll
+              for (int i = 0; i < mfeat; ++i)
+                macc[k][i] = fmaf(ck[u][k], x[u][i], macc[k][i]);
+            }
           }
         }
       }
@@ -444,7 +547,7 @@ fused_em_kernel(const float2* __restrict__ z,      // (F, T, D)
   if (warp == 0) {
 #pragma unroll
     for (int k = 0; k < kMaxK; ++k) {
-      float v = dacc[k];
+      float v = sDacc[k * kChunk + lane];
 #pragma unroll
       for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
       if (lane == 0 && k < K) sDen[k] = v;
@@ -452,14 +555,25 @@ fused_em_kernel(const float2* __restrict__ z,      // (F, T, D)
   }
   __syncthreads();   // every M-step is done with the chunk buffers
   float* sS = smem + kSumAt;  // groups x K x nfp
-  if (mown) {
+  if (mown) {   // the block's entries of the lower triangle, a < D
 #pragma unroll
-    for (int k = 0; k < kMaxK; ++k) {
-      if (k < K) {
+    for (int i = 0; i < kMRows; ++i) {
 #pragma unroll
-        for (int i = 0; i < kMFeat; ++i)
-          if (j0 + i < L.nfp)
-            sS[(grp * K + k) * L.nfp + j0 + i] = macc[k][i];
+      for (int j = 0; j < mc; ++j) {
+        const int a = a0 + i;
+        const int b = b0 + j;
+        if (a < D && b <= a) {
+          const int h = 2 * (i * mc + j);
+          float* out = sS + grp * K * L.nfp +
+                       (a == b ? D * (D - 1) + a : a * (a - 1) + 2 * b);
+#pragma unroll
+          for (int k = 0; k < kMaxK; ++k) {
+            if (k < K) {
+              out[k * L.nfp] = macc[k][h];
+              if (a != b) out[k * L.nfp + 1] = macc[k][h + 1];
+            }
+          }
+        }
       }
     }
   }
@@ -504,9 +618,19 @@ fused_em_kernel(const float2* __restrict__ z,      // (F, T, D)
   cluster.sync();   // no CTA leaves while another reads its shared memory
 }
 
+// The instantiation's largest layout, in floats: K = kMaxK (every region
+// grows with K), the largest over D (the partial S's frame groups do not
+// grow with D)
+constexpr int max_layout(int MAXD) {
+  int most = 0;
+  for (int D = 1; D <= MAXD; ++D)
+    most = layout(D, kMaxK, MAXD).total > most ? layout(D, kMaxK, MAXD).total
+                                               : most;
+  return most;
+}
+
 // The opt-in to more than 48 KB of dynamic shared memory, once per device
-// and instantiation, at the instantiation's largest layout (D = MAXD,
-// K = kMaxK: every region grows with D and K)
+// and instantiation, at the instantiation's largest layout
 template <int MAXD>
 cudaError_t opt_in() {
   static std::atomic<unsigned long long> done{0};
@@ -516,7 +640,7 @@ cudaError_t opt_in() {
   if (err != cudaSuccess || (done.load() & bit)) return err;
   err = cudaFuncSetAttribute(
       fused_em_kernel<MAXD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(sizeof(float) * layout(MAXD, kMaxK, MAXD).total));
+      static_cast<int>(sizeof(float) * max_layout(MAXD)));
   if (err == cudaSuccess) done.fetch_or(bit);
   return err;
 }

@@ -1,17 +1,26 @@
 """K1 (``csrc/fused_em.cu``) on the card: variants of its source timed in
-turns at the headline shape, and its rounding on P06's real EM state
-against float64.
+turns at one shape per instantiation, and its rounding on P06's real EM
+state against float64.
 
-    python scripts_dev/diag_k1_card.py [--parent OLD.cu] [--p06]
+    python scripts_dev/diag_k1_card.py [--parent OLD.cu]
+        [--source NAME=OTHER.cu ...] [--p06]
 
-* Timing: the kernel as it is, and copies of its source with one phase
+* Build: the kernel as it is, and copies of its source with one phase
   switched off (E-step, softmax, M-step, the M-step's skip of zero
-  coefficients) or one CTA per frequency, each
-  built by its own nvcc (all started together) and timed with
-  CUDA events in turns at F=513, T=2504, D=24, K=5 on
-  ``chip_smoke.py``'s random inputs.  A variant without a phase computes
-  garbage; only its time is read.  ``--parent`` adds another source of
-  the same C entry (e.g. an earlier version of the kernel) to the turns.
+  coefficients) or one CTA per frequency, each built by its own nvcc (all
+  started together); per source and instantiation (MAXD 8, 16, 24) the
+  registers and spills that ``ptxas -v`` reports, and the CTAs an SM and
+  the clusters on the card that the CUDA occupancy calculator gives (an
+  entry appended to each copy, not to the kernel's source).
+* Timing: every variant timed with CUDA events in turns on
+  ``chip_smoke.py``'s random inputs, at the headline F=513, T=2504, D=24,
+  K=5, and at D = 12 and D = 4 with the same F, T and K (one shape per
+  instantiation); each phase's marginal time is the kernel's less the
+  variant's without it.  A variant without a phase computes garbage; only
+  its time is read.  ``--parent`` adds another
+  source of the same C entry (e.g. an earlier version of the kernel) to
+  the turns, ``--source`` any number more; each is checked against the
+  plain version, and compared with the kernel bit for bit.
 * ``--p06``: the inputs of the first masked E+M pass of ``chip_smoke.py``'s
   ~40 s utterance (default config); per (f, k) relative Frobenius errors
   of S of the kernel (and of ``--parent``), of the plain version and of
@@ -25,6 +34,7 @@ Needs one CUDA card; imports the port only, never JAX.
 
 import argparse
 import ctypes
+import re
 import subprocess
 import sys
 import tempfile
@@ -42,19 +52,72 @@ from tests.test_torch_fused_em_cuda import (  # noqa: E402
 
 OUT = REPO / 'build' / 'diag_k1'
 
+SHAPES = (chip_smoke.HEADLINE, (513, 2504, 12, 5), (513, 2504, 4, 5))
+
+# appended to every copy built here: the occupancy of the instantiation
+# that serves D, with the launch's dynamic shared memory
+OCCUPANCY = r'''
+namespace {
+template <int MAXD>
+int diag_occupancy(int D, int K, int F, int clusters) {
+  cudaError_t err = opt_in<MAXD>();
+  const size_t smem = sizeof(float) * (size_t)layout(D, K, MAXD).total;
+  int n = 0;
+  if (err == cudaSuccess && clusters) {
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(F * kCluster);
+    cfg.blockDim = dim3(kThreads);
+    cfg.dynamicSmemBytes = smem;
+    err = cudaOccupancyMaxActiveClusters(&n, fused_em_kernel<MAXD>, &cfg);
+  } else if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &n, fused_em_kernel<MAXD>, kThreads, smem);
+  }
+  return err == cudaSuccess ? n : -static_cast<int>(err);
+}
+}  // namespace
+
+extern "C" int diag_occupancy(int D, int K, int F, int clusters) {
+  if (D <= 8) return diag_occupancy<8>(D, K, F, clusters);
+  if (D <= 16) return diag_occupancy<16>(D, K, F, clusters);
+  return diag_occupancy<24>(D, K, F, clusters);
+}
+'''
+
 # phase switched off -> (text in csrc/fused_em.cu, replacement)
 PATCHES = {
     'no_estep': ('if (kWarpRows * warp < K * D) {', 'if (false) {'),
-    'no_softmax': ('if (warp == 0 && ((valid >> lane) & 1u)) {',
+    'no_softmax': ('if (warp == 0) {   // responsibilities',
                    'if (warp > 99) {'),
-    'no_mstep': ('adds nothing\n    if (mown) {',
-                 'adds nothing\n    if (false) {'),
+    'no_mstep': ('are finite)\n    if (mown) {', 'are finite)\n    if (false) {'),
     'cluster_1': ('constexpr int kCluster = 2;', 'constexpr int kCluster = 1;'),
-    'm_noskip': ('if (ck[k] != 0.f) {   // 0 past K', 'if (true) {'),
+    'm_noskip': ('if ((mask >> k) & 1u) {', 'if (true) {'),
 }
 
 
-def build_variants(parent):
+def ptxas_summary(log):
+    """'MAXD m: r regs, spill s/l B' per instantiation from ptxas -v."""
+    rows, maxd = {}, None
+    for line in log.splitlines():
+        m = re.search(r"entry function '\S*fused_em_kernelILi(\d+)E", line)
+        if m:
+            maxd = int(m[1])
+            rows[maxd] = {}
+            continue
+        if maxd is None:
+            continue
+        m = re.search(r'(\d+) bytes spill stores, (\d+) bytes spill loads',
+                      line)
+        if m:
+            rows[maxd]['spill'] = f'{m[1]}/{m[2]} B'
+        m = re.search(r'Used (\d+) registers', line)
+        if m:
+            rows[maxd]['regs'] = int(m[1])
+    return '; '.join(f'MAXD {k}: {v.get("regs")} regs, spill '
+                     f'{v.get("spill")}' for k, v in sorted(rows.items()))
+
+
+def build_variants(parent, extra):
     source = (_build.CSRC_DIR / 'fused_em.cu').read_text()
     sources = {'kernel': source}
     for name, (old, new) in PATCHES.items():
@@ -63,11 +126,14 @@ def build_variants(parent):
         sources[name] = source.replace(old, new)
     if parent:
         sources['parent'] = Path(parent).read_text()
+    for item in extra:
+        name, path = item.split('=', 1)
+        sources[name] = Path(path).read_text()
     OUT.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name, text in sources.items():
         cu = OUT / f'{name}.cu'
-        cu.write_text(text)
+        cu.write_text(text + OCCUPANCY)
         procs[name] = subprocess.Popen(
             [_build.find_nvcc(), *_build.NVCC_FLAGS, '-o',
              str(OUT / f'lib{name}.so'), str(cu)],
@@ -77,15 +143,31 @@ def build_variants(parent):
         log = proc.communicate()[0]
         if proc.returncode:
             raise RuntimeError(f'nvcc failed for {name}:\n{log}')
-        regs = [line.split(':', 1)[-1].strip() for line in log.splitlines()
-                if 'registers' in line]
-        print(f'{name}: {regs}', flush=True)
-        fn = ctypes.CDLL(str(OUT / f'lib{name}.so')).pb_fused_em_scatter
+        print(f'{name} ptxas: {ptxas_summary(log)}', flush=True)
+        lib = ctypes.CDLL(str(OUT / f'lib{name}.so'))
+        fn = lib.pb_fused_em_scatter
         fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
+        fn.occupancy = lib.diag_occupancy
+        fn.occupancy.argtypes = [ctypes.c_int] * 4
+        fn.occupancy.restype = ctypes.c_int
         entries[name] = fn
     return entries
+
+
+def occupancy(entries, shapes):
+    """CTAs an SM, and clusters on the card, of each source at each
+    shape (a negative number: the cudaError_t of the query)."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for name in entries:
+        if name in PATCHES:
+            continue
+        for F, _, D, K in shapes:
+            occ = entries[name].occupancy
+            ctas, clusters = occ(D, K, F, 0), occ(D, K, F, 1)
+            print(f'occupancy {name} D={D} K={K}: {ctas} CTAs an SM; '
+                  f'{clusters} clusters of 2 on {sms} SMs', flush=True)
 
 
 def caller(fn, inputs):
@@ -105,21 +187,31 @@ def caller(fn, inputs):
     return call
 
 
-def timings(entries):
-    inputs = random_inputs(*chip_smoke.HEADLINE, seed=5, device='cuda')
+def timings(entries, shape):
+    tag = 'F={} T={} D={} K={}'.format(*shape)
+    inputs = random_inputs(*shape, seed=5, device='cuda')
     calls = {name: caller(fn, inputs) for name, fn in entries.items()}
-    for name in ('kernel', 'parent'):
-        if name in calls:
-            S, den = calls[name]()
-            ref = fused_em.fused_em_scatter_reference(*inputs)
-            print(f'{name} vs plain: rel_S, rel_den, max_abs '
-                  f'{scatter_errors(S.clone(), den.clone(), *ref)}',
-                  flush=True)
+    ref = fused_em.fused_em_scatter_reference(*inputs)
+    S0, den0 = (x.clone() for x in calls['kernel']())
+    for name in calls:
+        if name in PATCHES:
+            continue
+        S, den = (x.clone() for x in calls[name]())
+        same = torch.equal(S, S0) and torch.equal(den, den0)
+        print(f'{tag} {name} vs plain: rel_S, rel_den, max_abs '
+              f'{scatter_errors(S, den, *ref)}; equal to kernel: {same}',
+              flush=True)
+    del ref
     t = chip_smoke.in_turns(torch, {n: (c, 10) for n, c in calls.items()})
     for name, ms in t.items():
-        print(f'time {name}: {ms:.4f} ms', flush=True)
+        print(f'{tag} time {name}: {ms:.4f} ms', flush=True)
+    for name in PATCHES:
+        if name in t and name != 'cluster_1':
+            print(f'{tag} kernel - {name}: {t["kernel"] - t[name]:.4f} ms',
+                  flush=True)
     t = chip_smoke.graph_ms(torch, calls['kernel'], 10)
-    print(f'kernel device time from a CUDA graph: {t:.4f} ms', flush=True)
+    print(f'{tag} kernel device time from a CUDA graph: {t:.4f} ms',
+          flush=True)
 
 
 def scatter_given_q(inputs, q):
@@ -194,6 +286,8 @@ def p06(entries):
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument('--parent')
+    parser.add_argument('--source', action='append', default=[],
+                        metavar='NAME=PATH')
     parser.add_argument('--p06', action='store_true')
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -202,8 +296,10 @@ def main():
         ['nvidia-smi', '--query-gpu=name,power.limit',
          '--format=csv,noheader'], capture_output=True, text=True).stdout,
         flush=True)
-    entries = build_variants(args.parent)
-    timings(entries)
+    entries = build_variants(args.parent, args.source)
+    occupancy(entries, SHAPES)
+    for shape in SHAPES:
+        timings(entries, shape)
     if args.p06:
         p06(entries)
 

@@ -105,10 +105,14 @@ def cuda():
 
 
 # shapes across the kernel's instantiations (register bound on D: 8, 16,
-# 24), partial frame chunks and the size limits, plus the headline shape
+# 24), partial frame chunks and the size limits, plus the headline shape;
+# odd D (9, 13, 17, 23) leave the M-step's blocks (2 x 2 below D = 17,
+# 2 x 3 above) a ragged last row and column, at one class and at every
+# class
 @pytest.mark.parametrize('shape', [
     (3, 1, 1, 1), (7, 100, 4, 3), (5, 70, 12, 2), (4, 50, 16, 5),
     (4, 97, 20, 4), (16, 333, 24, 5), (513, 2504, 24, 5),
+    *[(6, 90, D, K) for D in (9, 13, 17, 23) for K in (1, 5)],
 ], ids=lambda s: 'F{}-T{}-D{}-K{}'.format(*s))
 @pytest.mark.parametrize('identity', [False, True])
 def test_kernel_matches_reference(cuda, shape, identity):
